@@ -1,0 +1,159 @@
+"""Checkpoints: a flax-msgpack reader, QARepVGG fusion, flax tree -> torch.
+
+Counterparts: ``head_detector_tpu/detector.py:load_variables`` (the msgpack
+path) and ``head_detector_tpu/export.py:_fuse_one`` / ``fuse_qarepvgg``.
+
+* :func:`load_variables` decodes a flax ``msgpack_serialize`` file with plain
+  ``msgpack``: arrays are ext type 1 holding a packed ``(shape, dtype name,
+  C-order bytes)`` triple, numpy scalars ext type 3.  (flax also packs
+  complex numbers as type 2, refused here, and splits leaves above 1 GiB
+  into chunk dictionaries; no checkpoint of these models has either.)
+* :func:`state_dict_from_flax` turns a ``{params, batch_stats}`` tree, in the
+  training layout (QARepVGG branches, folded here) or the deploy layout
+  (``rbr_reparam``), into the port's state dict: HWIO kernels become OIHW,
+  transposed-conv kernels are flipped into torch's layout, BatchNorm
+  scale/bias/mean/var become weight/bias/running stats, and every leaf
+  becomes float32 before any arithmetic (the shipped checkpoint is float16).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import msgpack
+import numpy as np
+import torch
+
+from head_detector_tpu_torch.models.presets import ArchCfg
+
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+
+
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    name = dtype_name.decode()
+    if name == "bfloat16":
+        raise ValueError("bfloat16 leaves are not supported by this reader")
+    return np.frombuffer(buffer, dtype=np.dtype(name)).reshape(shape, order="C")
+
+
+def _ext_hook(code: int, data: bytes):
+    if code == _EXT_NDARRAY:
+        return _ndarray_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
+    raise ValueError(f"unsupported msgpack ext type {code}")
+
+
+def load_variables(path: str) -> Dict[str, Any]:
+    """Read a flax msgpack checkpoint into a nested dict of numpy arrays."""
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+
+
+def count_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_leaves(v) for v in tree.values())
+    return 1
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _is_qarepvgg_scope(p) -> bool:
+    return isinstance(p, dict) and "branch_3x3_conv" in p and "post_bn" in p
+
+
+def fuse_qarepvgg_block(params: Dict[str, Any], stats: Dict[str, Any],
+                        eps: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Training QARepVGG scope -> fused 3x3 (kernel HWIO, bias), in float32:
+    fold BN into the 3x3 branch, add alpha * the 1x1 branch at the center
+    tap, add the identity when in == out and there is no alpha, fold the
+    post-BN."""
+    w3 = _f32(params["branch_3x3_conv"]["kernel"])  # [3, 3, in, out]
+    g1 = _f32(params["branch_3x3_bn"]["scale"])
+    b1 = _f32(params["branch_3x3_bn"]["bias"])
+    m1 = _f32(stats["branch_3x3_bn"]["mean"])
+    v1 = _f32(stats["branch_3x3_bn"]["var"])
+    w1 = _f32(params["branch_1x1"]["kernel"])  # [1, 1, in, out]
+    bias1 = _f32(params["branch_1x1"]["bias"])
+    alpha = float(_f32(params["alpha"])) if "alpha" in params else 1.0
+    g2 = _f32(params["post_bn"]["scale"])
+    b2 = _f32(params["post_bn"]["bias"])
+    m2 = _f32(stats["post_bn"]["mean"])
+    v2 = _f32(stats["post_bn"]["var"])
+
+    s1 = g1 / np.sqrt(v1 + eps)
+    w = w3 * s1[None, None, None, :]
+    b = b1 - m1 * s1
+
+    w_pad = np.zeros_like(w)
+    w_pad[1, 1] = alpha * w1[0, 0]
+    w = w + w_pad
+    b = b + alpha * bias1
+
+    cin, cout = w3.shape[2], w3.shape[3]
+    if cin == cout and "alpha" not in params:
+        ident = np.zeros_like(w)
+        ident[1, 1, np.arange(cin), np.arange(cin)] = 1.0
+        w = w + ident
+
+    s2 = g2 / np.sqrt(v2 + eps)
+    w = w * s2[None, None, None, :]
+    b = (b - m2) * s2 + b2
+    return w, b
+
+
+def _conv_weight(kernel: np.ndarray, transposed: bool) -> np.ndarray:
+    k = _f32(kernel)
+    if transposed:
+        # flax ConvTranspose [kh, kw, in, out], unflipped -> torch [in, out, kh, kw]
+        return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
+    return np.transpose(k, (3, 2, 0, 1))  # HWIO -> OIHW
+
+
+def state_dict_from_flax(
+    variables: Dict[str, Any], arch: ArchCfg
+) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Flax ``{params, batch_stats}`` (numpy leaves) -> (torch state dict,
+    number of flax leaves it consumed).  Every leaf of the tree is consumed
+    exactly once, so a complete conversion returns ``count_leaves(variables)``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+    used = 0
+
+    def put(key, value):
+        out[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+
+    def walk(p, s, path):
+        nonlocal used
+        prefix = ".".join(path)
+        if _is_qarepvgg_scope(p):
+            w, b = fuse_qarepvgg_block(p, s, arch.bn_eps)
+            put(f"{prefix}.rbr_reparam.weight", _conv_weight(w, False))
+            put(f"{prefix}.rbr_reparam.bias", b)
+            used += count_leaves(p) + count_leaves(s)
+            return
+        leaves = {k: v for k, v in p.items() if not isinstance(v, dict)}
+        if "scale" in leaves:  # BatchNorm
+            put(f"{prefix}.weight", leaves["scale"])
+            put(f"{prefix}.bias", leaves["bias"])
+            put(f"{prefix}.running_mean", s["mean"])
+            put(f"{prefix}.running_var", s["var"])
+            out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+            used += 4
+        elif leaves:  # Conv / ConvTranspose
+            put(f"{prefix}.weight", _conv_weight(leaves["kernel"], path[-1] == "upsample"))
+            used += 1
+            if "bias" in leaves:
+                put(f"{prefix}.bias", leaves["bias"])
+                used += 1
+        for key, sub in p.items():
+            if isinstance(sub, dict):
+                walk(sub, s.get(key, {}) if isinstance(s, dict) else {}, path + [key])
+
+    walk(params, stats, [])
+    return out, used

@@ -33,6 +33,13 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a CUDA kernel of head_detector_tpu_torch; skips without a card",
+    )
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.RandomState(0)

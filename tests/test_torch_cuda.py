@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Every test here is marked ``cuda`` and skips where there is no CUDA device
+(the kernels have no CPU form).  This file imports neither jax nor the JAX
+package, so it runs on a machine with only torch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+The kernel and the plain version run the same unfused float32 operations,
+so they are held to the Pallas kernel's bar (tests/test_rasterize_pallas.py):
+hit agreement >= 0.999 and |color| < 1e-4 on common hits.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from head_detector_tpu_torch.ops import rasterize as r
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    return torch.device("cuda")
+
+
+def _mesh(rng, n_heads, n_verts, n_tris, size):
+    verts = np.stack([
+        np.stack([rng.uniform(-5, size + 5, n_verts), rng.uniform(-5, size + 5, n_verts),
+                  rng.uniform(-1, 1, n_verts)], axis=1)
+        for _ in range(n_heads)
+    ]).astype(np.float32)
+    tris = rng.randint(0, n_verts, (n_tris, 3)).astype(np.int32)
+    colors = rng.rand(n_verts, 3).astype(np.float32)
+    return torch.from_numpy(verts), torch.from_numpy(tris), torch.from_numpy(colors)
+
+
+def _assert_agree(got, want):
+    (gc, gh), (wc, wh) = [(c.cpu(), h.cpu()) for c, h in (got, want)]
+    assert (gh == wh).float().mean().item() >= 0.999
+    common = gh & wh
+    if common.any():
+        assert (gc - wc).abs()[common].max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,size", [(0, 100), (1, 64), (2, 130)])
+def test_kernel_matches_plain(cuda_device, seed, size):
+    args = _mesh(np.random.RandomState(seed), 2, 40, 200, size)
+    for reverse in (False, True):
+        want = r.rasterize_zbuffer_plain(*args, size, size, reverse)
+        before = r.rasterize_zbuffer_cuda.launches
+        got = r.rasterize_zbuffer(*[a.to(cuda_device) for a in args], size, size, reverse)
+        torch.cuda.synchronize()
+        assert r.rasterize_zbuffer_cuda.launches == before + 1
+        _assert_agree(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_tie_empty_degenerate(cuda_device):
+    v = torch.tensor([[[2, 2, 0.5], [30, 2, 0.5], [2, 30, 0.5], [2, 2, 0.5], [30, 2, 0.5],
+                       [2, 30, 0.5], [1, 1, 0.9], [20, 20, 0.9], [10, 10, 0.9]]],
+                     device=cuda_device)
+    t = torch.tensor([[0, 1, 2], [3, 4, 5], [6, 7, 8], [6, 8, 8]], dtype=torch.int32,
+                     device=cuda_device)
+    c = torch.zeros((9, 3), device=cuda_device)
+    c[:3, 0], c[3:6, 1], c[6:, 2] = 1.0, 1.0, 1.0
+    color, hit = r.rasterize_zbuffer_cuda(v, t, c, 32, 32)
+    assert color[0, 10, 10].tolist() == [1.0, 0.0, 0.0]  # lowest index wins the tie
+    assert not (color[0, ..., 2] > 0).any()  # degenerate triangles cover nothing
+    _, empty = r.rasterize_zbuffer_cuda(v, t[:0].contiguous(), c, 16, 16)
+    assert not empty.any()
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_bad_inputs(cuda_device):
+    v = torch.zeros((1, 3, 3), device=cuda_device)
+    c = torch.zeros((3, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        r.rasterize_zbuffer_cuda(v, torch.zeros((1, 3), dtype=torch.int64,
+                                                device=cuda_device), c, 8, 8)
+    with pytest.raises(ValueError):
+        r.rasterize_zbuffer_cuda(v, torch.full((1, 3), 7, dtype=torch.int32,
+                                               device=cuda_device), c, 8, 8)
+    with pytest.raises(ValueError):
+        r.rasterize_zbuffer_cuda(v.cpu(), torch.zeros((1, 3), dtype=torch.int32), c.cpu(),
+                                 8, 8)
+
+
+@pytest.mark.cuda
+def test_pncc_card_matches_cpu(cuda_device):
+    from head_detector_tpu_torch.head_info import HeadMetadata
+    from head_detector_tpu_torch.pncc import PNCCProcessor
+
+    rng = np.random.RandomState(0)
+    heads = []
+    for _ in range(2):
+        verts = np.random.RandomState(len(heads)).rand(5023, 3).astype(np.float32)
+        verts[:, :2] = verts[:, :2] * 60 + rng.uniform(10, 50, 2)
+        heads.append(HeadMetadata(None, 1.0, None, verts, None))
+    image = np.zeros((128, 128, 3), np.uint8)
+    got = PNCCProcessor(device=cuda_device)(image, heads)
+    want = PNCCProcessor(device="cpu")(image, heads)
+    diff = np.abs(got.astype(int) - want.astype(int)).max(-1)
+    assert got.any() and (diff > 0).mean() <= 0.001
