@@ -1,5 +1,5 @@
-"""Z-buffered triangle rasterizer: plain torch version, Hopper kernel wrapper,
-and the host ``rasterize`` composite.
+"""Z-buffered triangle rasterizer: plain torch versions, the Hopper kernel's
+two wrappers, and the host ``rasterize`` composite.
 
 Counterpart of ``head_detector_tpu/ops/rasterize.py`` (the XLA golden) and
 ``head_detector_tpu/ops/rasterize_pallas.py`` (the TPU kernel).  Contract,
@@ -13,20 +13,32 @@ shared by both versions here:
   depth tie the lowest index wins;
 * color = sum(w_i * c_i) of the winner; ``reverse`` flips the output rows.
 
-Both versions reduce a per-pixel 64-bit key ``(ordered depth bits << 32) |
-(0xFFFFFFFF - triangle)`` by max and then recompute the winner's weights, so
-they run the same float32 operations in the same order.  Meshes may be
-batched, ``[N, V, 3]`` with one z-buffer per mesh and shared triangles and
-colors.
+The plain version reduces a per-pixel 64-bit key ``(ordered depth bits << 32)
+| (0xFFFFFFFF - triangle)`` by max; the kernel keeps each pixel's best
+``(depth, triangle)`` inside the block that owns the pixel's tile (in a
+register, compared lexicographically, and as the same key in shared memory),
+which is the same order.  Both run the same float32 operations in the same
+order on the winner.  Meshes may be batched, ``[N, V, 3]`` with one z-buffer per mesh
+and shared triangles and colors.
 
-``rasterize_zbuffer`` runs the plain version for CPU tensors and the CUDA
-kernel (``csrc/rasterize.cu``) for CUDA tensors; there is no fallback from
-one to the other.
+Two functions, each with a plain version (CPU tensors) and a CUDA kernel
+(``csrc/rasterize.cu``, CUDA tensors) and no fallback from one to the other:
+
+* ``rasterize_zbuffer`` -> float colors and a hit mask per mesh;
+* ``pncc_render`` -> one uint8 canvas with the meshes composited in order by
+  the PNCC rule (``head_detector_tpu/pncc.py``): at a hit pixel
+  ``c8 = uint8(255.0 * color)``, which replaces what earlier meshes left
+  there unless ``c8`` sums to 0.  The product is taken in float32 and the
+  cast truncates, exactly as ``composite`` below does with ``alpha = 1``.
+
+A steady-state call of either CUDA wrapper does not wait for the device: the
+index range of a triangle table is read back once per tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -38,6 +50,7 @@ _EMPTY = torch.iinfo(torch.int64).min  # key of a pixel no triangle covers
 _LOW_MASK = 0xFFFFFFFF
 # bound on (triangle, pixel) candidates held at once by the plain version
 _CANDIDATES_PER_CHUNK = 1 << 22
+MAX_CANVAS = 32767  # the kernel packs pixel boxes as int16
 
 
 def _triangle_setup(tv: torch.Tensor):
@@ -181,24 +194,77 @@ def _check_cuda_inputs(vertices, triangles, colors, height, width):
         raise ValueError(f"canvas must be non-empty, got {height}x{width}")
     if vertices.shape[0] * height * width >= 2**31 or triangles.shape[0] >= 2**31:
         raise ValueError("canvas or mesh too large for 32-bit indexing")
+    if max(height, width) > MAX_CANVAS:
+        raise ValueError(f"canvas sides must be <= {MAX_CANVAS}, got {height}x{width}")
+    if vertices.shape[0] > 65535:
+        raise ValueError("at most 65535 meshes per call")
     if triangles.numel():
-        lo, hi = torch.aminmax(triangles)
-        if int(lo) < 0 or int(hi) >= vertices.shape[1]:
+        lo, hi = _index_range(triangles)
+        if lo < 0 or hi >= vertices.shape[1]:
             raise ValueError(
                 f"triangle indices must lie in [0, {vertices.shape[1]}), "
-                f"got [{int(lo)}, {int(hi)}]"
+                f"got [{lo}, {hi}]"
             )
+
+
+# id(table) -> (weak reference, version counter, lowest, highest index): the
+# range of a table that is alive and unchanged since it was read
+_CHECKED_TABLES: dict = {}
+
+
+def _index_range(triangles: torch.Tensor):
+    """(lowest, highest) index of a non-empty triangle table.  Reading it is a
+    device-to-host synchronisation, so it is done once per tensor: a later
+    call with the same tensor object, not written to since, costs nothing."""
+    key = id(triangles)
+    entry = _CHECKED_TABLES.get(key)
+    if entry is not None and entry[0]() is triangles and entry[1] == triangles._version:
+        return entry[2], entry[3]
+    lo, hi = torch.stack(torch.aminmax(triangles)).tolist()
+    ref = weakref.ref(triangles, lambda _, key=key: _CHECKED_TABLES.pop(key, None))
+    _CHECKED_TABLES[key] = (ref, triangles._version, lo, hi)
+    return lo, hi
 
 
 def _library():
     from head_detector_tpu_torch import cuda_build
 
     lib = cuda_build.load("rasterize")
-    fn = lib.hdt_rasterize_zbuffer
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.hdt_rasterize_zbuffer.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.hdt_raster_scratch_bytes.argtypes = [i32, i32]
+        lib.hdt_raster_scratch_bytes.restype = ctypes.c_longlong
+        lib.hdt_pncc_render.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        lib.hdt_pncc_render.restype = i32
+        lib.hdt_rasterize_zbuffer.restype = i32
+        lib.hdt_rasterize_zbuffer.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+    return lib
+
+
+def alloc_scratch(vertices: torch.Tensor, triangles: torch.Tensor) -> torch.Tensor:
+    """The kernels' scratch for these meshes (triangle records and boxes);
+    its contents need not survive a call."""
+    size = _library().hdt_raster_scratch_bytes(vertices.shape[0], triangles.shape[0])
+    return torch.empty(size, dtype=torch.uint8, device=vertices.device)
+
+
+def launch_rasterize_zbuffer(vertices, triangles, colors, scratch, canvas, hit,
+                             reverse: bool = False) -> None:
+    """Launch the kernel on checked inputs and preallocated ``scratch``
+    (``alloc_scratch``), ``canvas`` [N, H, W, 3] float32 and ``hit``
+    [N, H, W] bool; nothing is launched for N = 0."""
+    n, nv, _ = vertices.shape
+    _, height, width = hit.shape
+    err = _library().hdt_rasterize_zbuffer(
+        vertices.data_ptr(), triangles.data_ptr(), colors.data_ptr(),
+        scratch.data_ptr(), canvas.data_ptr(), hit.data_ptr(),
+        n, nv, triangles.shape[0], height, width, int(bool(reverse)),
+        torch.cuda.current_stream(vertices.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"rasterize kernel launch failed: cudaError {err}")
+    if n:
+        rasterize_zbuffer_cuda.launches += 1
 
 
 def rasterize_zbuffer_cuda(
@@ -212,27 +278,101 @@ def rasterize_zbuffer_cuda(
     """Hopper kernel (``csrc/rasterize.cu``); same returns as the plain
     version.  Counts its launches in ``rasterize_zbuffer_cuda.launches``."""
     _check_cuda_inputs(vertices, triangles, colors, height, width)
-    fn = _library()
-    n, nv, _ = vertices.shape
-    nf = triangles.shape[0]
+    n = vertices.shape[0]
     dev = vertices.device
-    keys = torch.empty((n, height, width), dtype=torch.int64, device=dev)
-    keys.zero_()
     canvas = torch.empty((n, height, width, 3), dtype=torch.float32, device=dev)
     hit = torch.empty((n, height, width), dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
-        vertices.data_ptr(), triangles.data_ptr(), colors.data_ptr(),
-        keys.data_ptr(), canvas.data_ptr(), hit.data_ptr(),
-        n, nv, nf, height, width, int(bool(reverse)), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"rasterize kernel launch failed: cudaError {err}")
-    rasterize_zbuffer_cuda.launches += 1
+    launch_rasterize_zbuffer(vertices, triangles, colors,
+                             alloc_scratch(vertices, triangles), canvas, hit, reverse)
     return canvas, hit
 
 
 rasterize_zbuffer_cuda.launches = 0
+
+
+def launch_pncc_render(vertices, triangles, colors, scratch, canvas) -> None:
+    """Launch the PNCC entry point on checked inputs and preallocated
+    ``scratch`` and ``canvas`` [H, W, 3] uint8."""
+    n, nv, _ = vertices.shape
+    height, width, _ = canvas.shape
+    err = _library().hdt_pncc_render(
+        vertices.data_ptr(), triangles.data_ptr(), colors.data_ptr(),
+        scratch.data_ptr(), canvas.data_ptr(),
+        n, nv, triangles.shape[0], height, width,
+        torch.cuda.current_stream(vertices.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"PNCC render kernel launch failed: cudaError {err}")
+    pncc_render_cuda.launches += 1
+
+
+def pncc_render_cuda(
+    vertices: torch.Tensor,  # [N, V, 3] float32, CUDA
+    triangles: torch.Tensor,  # [F, 3] int32
+    colors: torch.Tensor,  # [V, 3] float32
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """Hopper kernel (``csrc/rasterize.cu``, ``hdt_pncc_render``): the meshes
+    composited in order into one uint8 [H, W, 3] canvas on the card.  Counts
+    its launches in ``pncc_render_cuda.launches``; no meshes give zeros
+    without a launch."""
+    _check_cuda_inputs(vertices, triangles, colors, height, width)
+    dev = vertices.device
+    if vertices.shape[0] == 0:
+        return torch.zeros((height, width, 3), dtype=torch.uint8, device=dev)
+    canvas = torch.empty((height, width, 3), dtype=torch.uint8, device=dev)
+    launch_pncc_render(vertices, triangles, colors, alloc_scratch(vertices, triangles),
+                       canvas)
+    return canvas
+
+
+pncc_render_cuda.launches = 0
+
+
+def pncc_render_plain(
+    vertices: torch.Tensor,  # [N, V, 3] float32
+    triangles: torch.Tensor,  # [F, 3] int
+    colors: torch.Tensor,  # [V, 3] float32
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """Plain torch version of ``pncc_render``: ``rasterize_zbuffer_plain``,
+    then the composite in mesh order."""
+    out = torch.zeros((height, width, 3), dtype=torch.uint8, device=vertices.device)
+    if vertices.shape[0] == 0:
+        return out
+    canvas, hit = rasterize_zbuffer_plain(vertices, triangles, colors, height, width)
+    for i in range(vertices.shape[0]):
+        c8 = (255.0 * canvas[i]).to(torch.int32).to(torch.uint8)  # float32 product, truncated
+        replace = hit[i] & (c8.sum(-1, dtype=torch.int32) != 0)
+        out[replace] = c8[replace]
+    return out
+
+
+def _on_device(vertices, triangles, colors):
+    """Kernel-ready copies (float32 / int32, contiguous, on the vertices'
+    device); a tensor that already is comes back as the same object."""
+    dev = vertices.device
+    return (vertices.to(torch.float32).contiguous(),
+            triangles.to(device=dev, dtype=torch.int32).contiguous(),
+            colors.to(device=dev, dtype=torch.float32).contiguous())
+
+
+def pncc_render(
+    vertices: torch.Tensor,  # [N, V, 3]
+    triangles: torch.Tensor,
+    colors: torch.Tensor,
+    height: int,
+    width: int,
+) -> torch.Tensor:
+    """PNCC canvas uint8 [H, W, 3] of N meshes composited in order: the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if vertices.device.type == "cpu":
+        return pncc_render_plain(vertices, triangles, colors, height, width)
+    if vertices.device.type == "cuda":
+        return pncc_render_cuda(*_on_device(vertices, triangles, colors), height, width)
+    raise ValueError(f"no rasterizer for device {vertices.device}")
 
 
 def rasterize_zbuffer(
@@ -253,10 +393,7 @@ def rasterize_zbuffer(
         )
     elif verts.device.type == "cuda":
         canvas, hit = rasterize_zbuffer_cuda(
-            verts.to(torch.float32).contiguous(),
-            triangles.to(device=verts.device, dtype=torch.int32).contiguous(),
-            colors.to(device=verts.device, dtype=torch.float32).contiguous(),
-            height, width, reverse,
+            *_on_device(verts, triangles, colors), height, width, reverse
         )
     else:
         raise ValueError(f"no rasterizer for device {verts.device}")

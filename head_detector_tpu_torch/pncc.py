@@ -4,10 +4,11 @@ Counterpart of ``head_detector_tpu/pncc.py``: per head, flip z, rasterize the
 head_w_ears triangle subset colored by the min-max-normalised template
 coordinates, and composite the nonzero pixels onto an accumulating canvas.
 
-All heads of an image render in ONE rasterizer launch, each with its own
-z-buffer; the composite then walks them in head order on the host with the
+All heads of an image render in ONE ``pncc_render`` call, each with its own
+z-buffer, and are composited in head order on the rendering device with the
 reference's rule ``mask = current.sum(2) != 0`` (a hit pixel whose uint8
-color is 0 does not overwrite an earlier head).
+color is 0 does not overwrite an earlier head); one uint8 canvas comes back
+to the host.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from head_detector_tpu_torch.assets_io import load_flame_assets
 from head_detector_tpu_torch.device import resolve_device
 from head_detector_tpu_torch.head_info import HeadMetadata
-from head_detector_tpu_torch.ops.rasterize import composite, rasterize_zbuffer
+from head_detector_tpu_torch.ops.rasterize import pncc_render, rasterize_zbuffer
 
 
 def compute_ncc_color_codes(
@@ -61,26 +62,28 @@ class PNCCProcessor:
             self.colors.astype(np.float32), device=self.device
         )
 
-    def render(self, heads: List[HeadMetadata], height: int, width: int):
-        """All heads in one launch -> (canvas [N, H, W, 3], hit [N, H, W]) numpy."""
+    def _camera_facing(self, heads: List[HeadMetadata]) -> torch.Tensor:
+        """[N, V, 3] meshes with the depth flipped (on a copy of each head)."""
         verts = np.stack([np.asarray(h.vertices_3d, np.float32) for h in heads])
-        verts[:, :, 2] *= -1  # camera-facing depth (on a copy of each head)
+        verts[:, :, 2] *= -1
+        return torch.as_tensor(verts, device=self.device)
+
+    def render(self, heads: List[HeadMetadata], height: int, width: int):
+        """The float canvases, all heads in one launch ->
+        (canvas [N, H, W, 3], hit [N, H, W]) numpy."""
         canvas, hit = rasterize_zbuffer(
-            torch.as_tensor(verts, device=self.device),
-            self._triangles, self._colors, height=height, width=width,
+            self._camera_facing(heads), self._triangles, self._colors,
+            height=height, width=width,
         )
         return canvas.cpu().numpy(), hit.cpu().numpy()
 
     def __call__(self, image: np.ndarray, heads: List[HeadMetadata]) -> np.ndarray:
-        pncc_image = np.zeros_like(image)
         if not heads:
-            return pncc_image
-        canvas, hit = self.render(heads, image.shape[0], image.shape[1])
-        for i in range(len(heads)):
-            current = composite(pncc_image, canvas[i], hit[i])
-            # mask = current.sum(2) != 0; off the hit pixels current is
-            # pncc_image already, so only hit pixels can change
-            rows, cols = np.nonzero(hit[i])
-            sel = current[rows, cols].sum(1) != 0
-            pncc_image[rows[sel], cols[sel]] = current[rows[sel], cols[sel]]
+            return np.zeros_like(image)
+        rgb = pncc_render(
+            self._camera_facing(heads), self._triangles, self._colors,
+            height=image.shape[0], width=image.shape[1],
+        ).cpu().numpy()
+        pncc_image = np.zeros_like(image)
+        pncc_image[..., :3] = rgb
         return pncc_image

@@ -9,6 +9,7 @@ heads in one launch with a z-buffer each, composited in head order.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -33,6 +34,28 @@ def scene_params(seed: int, index: int, size: int = 640, max_heads: int = 3):
     return params, rng
 
 
+@functools.lru_cache(maxsize=None)
+def scene_tables(device: torch.device):
+    """(triangles [F, 3] int32, colors [V, 3] float32) of the full FLAME mesh
+    on ``device``, made once per device: the same tensors go to the rasterizer
+    in every call, so it checks the table's index range once."""
+    assets = load_flame_assets()
+    colors = compute_ncc_color_codes(assets.v_template.astype(np.float64))
+    return (torch.as_tensor(assets.faces.astype(np.int32), device=device),
+            torch.as_tensor(colors.astype(np.float32), device=device))
+
+
+def scene_vertices(params: np.ndarray, flame_model: FlameModel) -> torch.Tensor:
+    """[n, V, 3] projected meshes of the scene's heads, depth facing the
+    camera like the PNCC path."""
+    _, _, proj = reproject_spatial_vertices(
+        flame_model, torch.as_tensor(params, device=flame_model.device), to_2d=False
+    )
+    verts = proj.clone()
+    verts[:, :, 2] *= -1
+    return verts
+
+
 def render_scene(
     seed: int,
     index: int,
@@ -45,20 +68,11 @@ def render_scene(
     dev = resolve_device(device)
     flame_model = flame_model or FlameModel.from_assets(device=dev)
     params, rng = scene_params(seed, index, size, max_heads)
-    _, _, proj = reproject_spatial_vertices(
-        flame_model, torch.as_tensor(params, device=dev), to_2d=False
-    )
     image = (rng.rand(size, size, 3) * 60 + 40).astype(np.uint8)
 
-    assets = load_flame_assets()
-    colors = compute_ncc_color_codes(assets.v_template.astype(np.float64))
-    verts = proj.clone()
-    verts[:, :, 2] *= -1  # camera-facing depth like the PNCC path
+    triangles, colors = scene_tables(dev)
     canvas, hit = rasterize_zbuffer(
-        verts,
-        torch.as_tensor(assets.faces, device=dev),
-        torch.as_tensor(colors.astype(np.float32), device=dev),
-        height=size, width=size,
+        scene_vertices(params, flame_model), triangles, colors, height=size, width=size
     )
     canvas, hit = canvas.cpu().numpy(), hit.cpu().numpy()
     for i in range(len(params)):

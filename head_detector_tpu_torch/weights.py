@@ -14,6 +14,12 @@ path) and ``head_detector_tpu/export.py:_fuse_one`` / ``fuse_qarepvgg``.
   transposed-conv kernels are flipped into torch's layout, BatchNorm
   scale/bias/mean/var become weight/bias/running stats, and every leaf
   becomes float32 before any arithmetic (the shipped checkpoint is float16).
+  The reference folds in the leaves' own dtype, so its fused weights of that
+  checkpoint carry float16 rounding and the port's do not; on rendered scenes
+  the two detectors then differ by 4e-4 in score and 7e-5 relative in the
+  posed vertices, inside the 1e-3 bar
+  (``tests/test_torch_detector.py::test_shipped_m_checkpoint_matches_jax``),
+  so the port keeps the more exact fold.
 """
 
 from __future__ import annotations

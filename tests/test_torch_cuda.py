@@ -7,8 +7,9 @@ package, so it runs on a machine with only torch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The kernel and the plain version run the same unfused float32 operations,
-so they are held to the Pallas kernel's bar (tests/test_rasterize_pallas.py):
-hit agreement >= 0.999 and |color| < 1e-4 on common hits.
+so ``rasterize_zbuffer`` is held to the Pallas kernel's bar
+(tests/test_rasterize_pallas.py): hit agreement >= 0.999 and |color| < 1e-4
+on common hits; ``pncc_render`` to equality of every uint8 pixel.
 """
 
 import numpy as np
@@ -55,6 +56,93 @@ def test_kernel_matches_plain(cuda_device, seed, size):
         torch.cuda.synchronize()
         assert r.rasterize_zbuffer_cuda.launches == before + 1
         _assert_agree(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_canvas", "canvas_filling_head", "dense_tile"])
+def test_kernel_matches_plain_shapes(cuda_device, case):
+    """A canvas that ends inside tiles, a head larger than the canvas (every
+    tile lists triangles), and a mesh denser than one tile's list (the list
+    is walked in several rounds)."""
+    rng = np.random.RandomState(7)
+    height, width = (100, 130) if case == "ragged_canvas" else (96, 160)
+    verts, tris, colors = _mesh(rng, 2, 60, 400, 100)
+    if case == "canvas_filling_head":
+        verts[..., :2] = verts[..., :2] * 3.0 - 60.0
+    if case == "dense_tile":
+        verts, tris, colors = _mesh(rng, 1, 200, 5000, 100)
+        verts[..., :2] = verts[..., :2] * 0.2 + 30.0
+    for reverse in (False, True):
+        want = r.rasterize_zbuffer_plain(verts, tris, colors, height, width, reverse)
+        got = r.rasterize_zbuffer(*[a.to(cuda_device) for a in (verts, tris, colors)],
+                                  height, width, reverse)
+        torch.cuda.synchronize()
+        assert want[1].any()
+        _assert_agree(got, want)
+        assert torch.equal(got[1].cpu(), want[1]) and torch.equal(got[0].cpu(), want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["overlapping_heads", "zero_uint8_color", "ragged_canvas",
+                                  "no_heads", "empty_mesh"])
+def test_pncc_render_kernel_equals_plain(cuda_device, case):
+    rng = np.random.RandomState(8)
+    height, width = (100, 130) if case == "ragged_canvas" else (96, 96)
+    verts, tris, colors = _mesh(rng, 3, 40, 150, 96)
+    if case == "zero_uint8_color":
+        colors = colors * (torch.from_numpy(rng.rand(len(colors), 1)) > 0.6).float()
+    if case == "no_heads":
+        verts = verts[:0]
+    if case == "empty_mesh":
+        tris = tris[:0]
+    want = r.pncc_render_plain(verts, tris, colors, height, width)
+    before = r.pncc_render_cuda.launches
+    got = r.pncc_render(*[a.to(cuda_device) for a in (verts, tris, colors)], height, width)
+    torch.cuda.synchronize()
+    assert r.pncc_render_cuda.launches == before + (0 if case == "no_heads" else 1)
+    assert got.dtype == torch.uint8 and got.device.type == "cuda"
+    assert want.any() == (case not in ("no_heads", "empty_mesh"))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_steady_state_call_does_not_synchronise(cuda_device):
+    """The index range of a triangle table is read back once; after that
+    neither wrapper waits for the device."""
+    verts, tris, colors = [a.to(cuda_device) for a in _mesh(np.random.RandomState(9), 2, 40,
+                                                            200, 64)]
+    r.rasterize_zbuffer_cuda(verts, tris, colors, 64, 64)  # reads the index range
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        canvas, hit = r.rasterize_zbuffer_cuda(verts, tris, colors, 64, 64)
+        rgb = r.pncc_render_cuda(verts, tris, colors, 64, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert hit.any() and rgb.any() and canvas.isfinite().all()
+    tris[0, 0] = 40  # written to: the range is read again, and is now outside [0, V)
+    with pytest.raises(ValueError):
+        r.rasterize_zbuffer_cuda(verts, tris, colors, 64, 64)
+
+
+@pytest.mark.cuda
+def test_render_scene_reads_its_table_once(cuda_device, monkeypatch):
+    """render_scene keeps its triangle table per device, so only the first
+    call reads the table's index range back from the card."""
+    from head_detector_tpu_torch.flame import FlameModel
+    from head_detector_tpu_torch.train.dataset import render_scene
+
+    flame_model = FlameModel.from_assets(device=cuda_device)
+    render_scene(11, 0, size=64, max_heads=2, device=cuda_device, flame_model=flame_model)
+    reads = []
+    aminmax = torch.aminmax
+    monkeypatch.setattr(torch, "aminmax", lambda t: reads.append(1) or aminmax(t))
+    before = r.rasterize_zbuffer_cuda.launches
+    scene = render_scene(11, 1, size=64, max_heads=2, device=cuda_device,
+                         flame_model=flame_model)
+    assert r.rasterize_zbuffer_cuda.launches == before + 1 and not reads
+    assert scene.shape == (64, 64, 3) and (scene.max(-1) > 100).any()
 
 
 @pytest.mark.cuda

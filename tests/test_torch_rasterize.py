@@ -130,3 +130,62 @@ def test_rasterize_composite_matches_jax(monkeypatch):
     got = port.rasterize(vertices, triangles, colors, bg=bg.copy(), alpha=0.6,
                          device="cpu")
     assert (np.abs(got.astype(int) - want.astype(int)).max(-1) > 1).mean() <= 0.001
+
+
+def _host_composite(verts, triangles, colors, height, width):
+    """The PNCC composite on the host, head by head as the reference does it:
+    ``composite`` with alpha = 1, then ``mask = current.sum(2) != 0``."""
+    canvas, hit = port.rasterize_zbuffer(
+        torch.from_numpy(verts), torch.from_numpy(triangles), torch.from_numpy(colors),
+        height=height, width=width)
+    canvas, hit = canvas.numpy(), hit.numpy()
+    image = np.zeros((height, width, 3), np.uint8)
+    for i in range(len(verts)):
+        current = port.composite(image, canvas[i], hit[i])
+        mask = current.sum(2) != 0
+        image[mask] = current[mask]
+    return image, canvas, hit
+
+
+@pytest.mark.parametrize("case", ["overlapping_heads", "zero_uint8_color", "no_heads",
+                                  "non_square"])
+def test_pncc_render_plain_matches_host_composite(case):
+    rng = np.random.RandomState(5)
+    height, width = (72, 110) if case == "non_square" else (96, 96)
+    meshes = [_random_mesh(rng, 40, 150, min(height, width)) for _ in range(3)]
+    triangles, colors = meshes[0][1], meshes[0][2]
+    verts = np.stack([m[0] for m in meshes])
+    if case == "zero_uint8_color":
+        colors = colors * (rng.rand(len(colors), 1) > 0.6)  # most vertices black
+    if case == "no_heads":
+        verts = verts[:0]
+    want, canvas, hit = _host_composite(verts, triangles, colors.astype(np.float32),
+                                        height, width)
+    got = port.pncc_render(torch.from_numpy(verts), torch.from_numpy(triangles),
+                           torch.from_numpy(colors.astype(np.float32)), height, width)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (height, width, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "no_heads":
+        assert not want.any()
+        return
+    assert want.any() and (hit.sum(0) >= 2).any()  # the heads overlap
+    if case == "zero_uint8_color":
+        # a later head hits a pixel with a color that casts to 0 and leaves
+        # the earlier head's value there
+        c8 = (255.0 * canvas).astype(np.uint8)
+        black = hit[2] & (c8[2].sum(-1) == 0)
+        earlier = (hit[0] & (c8[0].sum(-1) != 0)) | (hit[1] & (c8[1].sum(-1) != 0))
+        assert (black & earlier).any()
+        assert (want[black & earlier].sum(-1) != 0).all()
+
+
+def test_index_range_is_read_once_per_table(monkeypatch):
+    reads = []
+    aminmax = torch.aminmax
+    monkeypatch.setattr(torch, "aminmax", lambda t: reads.append(1) or aminmax(t))
+    table = torch.tensor([[0, 1, 2], [2, 3, 1]], dtype=torch.int32)
+    assert port._index_range(table) == (0, 3)
+    assert port._index_range(table) == (0, 3) and len(reads) == 1
+    table[0, 0] = 7  # written to: read again
+    assert port._index_range(table) == (1, 7) and len(reads) == 2
+    assert port._index_range(table.clone()) == (1, 7) and len(reads) == 3
