@@ -23,7 +23,22 @@ Phases (any failure exits non-zero before the final line):
 4. the port on the card against the port on the CPU (plain kernels) for one
    scene: box IoU >= 0.99, posed-vertex relative L2 <= 1e-3, PNCC maps equal
    on >= 99.9% of pixels;
-5. one ``{"kernels": [...]}`` line, then the last line
+5. the detector options and the result API on the 8 scenes (launch counts
+   zeroed around them): ``HeadDetector(compact_wire=8,
+   wire_verts_dtype="f16", param_fusion=True)`` keeps the default detector's
+   boxes and scores, its compact ``__call__`` equals a fused detector without
+   a compact wire on every scene (<= 8 heads), float16 vertices within
+   0.25 px; ``get_pncc``, ``draw("full")``, ``get_aligned_heads()``,
+   ``save_meshes`` and ``aligned_heads_batched`` on every result in host
+   ms/img; ``aligned_heads_batched`` on the card against the CPU within 1e-3;
+6. streaming: ``StreamingDetector`` (yolo_heads_m, 1024 px, batch 32,
+   bfloat16, ``head`` vertices in bfloat16, decode budget 256) images/s of
+   ``run()`` over 64 scenes rendered at 1024 px (counts zeroed before the
+   rendering), of ``throughput(256)`` host-fed and device-fed, the device's
+   busy share in a profiled ``run()``; card against CPU at float32 on a
+   batch of 4 scenes (box IoU >= 0.99, vertex relative L2 <= 1e-3) and card
+   bfloat16 against card float32 on it (box IoU >= 0.95, score |d| <= 2e-2);
+7. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is
@@ -36,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -55,6 +71,10 @@ FP32_FLOP_PER_S = 67e12
 # float ops per (triangle, pixel of its box) test: 10 for the weights, 5 for
 # the depth, the compares, plus the per-triangle setup amortised
 RASTER_OPS_PER_CANDIDATE = 24
+
+STREAM_SIZE = 1024
+STREAM_BATCH = 32
+STREAM_SCENES = 64
 
 HIT_AGREEMENT = 0.999  # the Pallas kernel's bar, tests/test_rasterize_pallas.py
 COLOR_TOL = 1e-4
@@ -445,16 +465,16 @@ def phase_main_path(detector, flame_model):
     return scenes, launches
 
 
-def phase_profile(detector, scenes):
-    """Device time by kernel over one batch + PNCC (torch.profiler), and the
-    share of the window the device was busy."""
+def profile_window(label, fn):
+    """Device time by kernel over ``fn()`` (torch.profiler) and the share of
+    the window the device was busy; returns that share (None where the
+    profiler sees no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for res in detector.predict_batch(scenes, confidence_threshold=0.5):
-            res.get_pncc()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -466,15 +486,24 @@ def phase_profile(detector, scenes):
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
-    log(f"  profiler: window {wall_ms:.3f} ms (batch {len(scenes)}, detect + PNCC, "
-        f"profiled), device busy {busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}%, "
-        f"{len(kernels)} distinct device ops")
+    log(f"  profiler: window {wall_ms:.3f} ms ({label}, profiled), device busy "
+        f"{busy_ms:.3f} ms = {100 * busy_ms / wall_ms:.1f}%, {len(kernels)} distinct device ops")
     for e in sorted(kernels, key=lambda e: -device_us(e))[:10]:
         log(f"    {device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
     for e in kernels:  # the port's own kernels, wherever they rank
         if any(k in e.key for k in ("setup_kernel", "raster_zbuffer", "pncc_render")):
             log(f"    own kernel: {device_us(e) / e.count:9.3f} us each x{e.count:<4d} "
                 f"{e.key[:70]}")
+    return busy_ms / wall_ms if kernels else None
+
+
+def phase_profile(detector, scenes):
+    """One batch + PNCC under the profiler."""
+    def batch_and_pncc():
+        for res in detector.predict_batch(scenes, confidence_threshold=0.5):
+            res.get_pncc()
+
+    profile_window(f"batch {len(scenes)}, detect + PNCC", batch_and_pncc)
 
 
 def phase_card_vs_cpu(detector_gpu, scene):
@@ -500,6 +529,249 @@ def phase_card_vs_cpu(detector_gpu, scene):
         f"(within 1: {float((diff <= 1).mean()):.6f})")
     if worst_iou < 0.99 or worst_rel > 1e-3 or pncc_agree < 0.999:
         raise AssertionError("card and CPU disagree")
+
+
+def same_detections(got, want, name):
+    """Equal boxes and scores, head by head, on every image."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if [tuple(h.bbox) for h in g.heads] != [tuple(h.bbox) for h in w.heads] or \
+                [h.score for h in g.heads] != [h.score for h in w.heads]:
+            raise AssertionError(f"{name}: detections differ on image {i}")
+
+
+def max_vertex_px(got, want) -> float:
+    return max((float(np.abs(hg.vertices_3d - hw.vertices_3d).max())
+                for g, w in zip(got, want) for hg, hw in zip(g.heads, w.heads)), default=0.0)
+
+
+def phase_options_and_results(detector, scenes):
+    """The detector options and the result API at full width."""
+    from head_detector_tpu_torch.detection_result import PredictionResult
+    from head_detector_tpu_torch.detector import HeadDetector
+    from head_detector_tpu_torch.evaluation.head_alignment import aligned_heads_batched
+    from head_detector_tpu_torch.ops import rasterize as r
+
+    dev = detector.device
+    kw = dict(model=MODEL, image_size=IMAGE_SIZE, checkpoint=CHECKPOINT, device=dev)
+    opt = HeadDetector(compact_wire=8, wire_verts_dtype="f16", param_fusion=True, **kw)
+    fused = HeadDetector(param_fusion=True, **kw)
+    plain = detector.predict_batch(scenes, confidence_threshold=0.5)
+
+    r.rasterize_zbuffer_cuda.launches = 0
+    r.pncc_render_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = opt.predict_batch(scenes, confidence_threshold=0.5)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    single = [opt(scene, confidence_threshold=0.5) for scene in scenes]
+    t2 = time.perf_counter()
+    pnccs = [res.get_pncc() for res in batch]
+    launches = {"rasterize_zbuffer": r.rasterize_zbuffer_cuda.launches,
+                "pncc_render": r.pncc_render_cuda.launches}
+    t3 = time.perf_counter()
+    opt.predict_batch(scenes, confidence_threshold=0.5)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    for scene in scenes:
+        opt(scene, confidence_threshold=0.5)
+    t5 = time.perf_counter()
+    n = len(scenes)
+    log(f"  options detector: predict_batch {(t1 - t0) * 1e3 / n:.3f} ms/img, __call__ "
+        f"{(t2 - t1) * 1e3 / n:.3f} ms/img (first calls); again {(t4 - t3) * 1e3 / n:.3f} and "
+        f"{(t5 - t4) * 1e3 / n:.3f} ms/img; launches on this path: {launches}")
+    if launches["pncc_render"] <= 0 or not any(p.any() for p in pnccs):
+        raise AssertionError("get_pncc on the options detector's results launched nothing")
+
+    same_detections(batch, plain, "param fusion against the default detector")
+    heads = [len(res.heads) for res in single]
+    if max(heads) > 8:
+        raise AssertionError(f"a scene has more than 8 heads: {heads}")
+    want_single = [fused(scene, confidence_threshold=0.5) for scene in scenes]
+    same_detections(single, want_single, "compact wire against no compact wire")
+    # the same rows in both (budget 16 an image): the difference is the cast
+    want_batch = fused.predict_batch(scenes, confidence_threshold=0.5)
+    f16_px = max_vertex_px(batch, want_batch)
+    # 8 rows against 100: the towers' convolutions see another batch size
+    call_px = max_vertex_px(single, want_single)
+    moved = max_vertex_px(want_batch, plain)
+    log(f"  param fusion keeps {sum(len(b.heads) for b in batch)} detections (boxes and scores "
+        f"equal), moves vertices by up to {moved:.3f} px; compact wire (8) equal on scenes with "
+        f"{heads} heads (vertices within {call_px:.5f} px, float16 included); float16 vertices "
+        f"within {f16_px:.5f} px of the same float32 rows")
+    if f16_px > 0.25 or call_px > 0.26:
+        raise AssertionError(f"float16 vertices off by {f16_px} px ({call_px} px in __call__)")
+
+    n = len(batch)
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in [
+            ("draw(full)", lambda res, i: res.draw("full")),
+            ("get_aligned_heads", lambda res, i: res.get_aligned_heads()),
+            ("save_meshes", lambda res, i: res.save_meshes(os.path.join(tmp, str(i)))),
+            ("aligned_heads_batched", lambda res, i: aligned_heads_batched(res)),
+        ]:
+            outs = [fn(res, i) for i, res in enumerate(batch)]  # first calls
+            t0 = time.perf_counter()
+            outs = [fn(res, i) for i, res in enumerate(batch)]
+            times[name] = (time.perf_counter() - t0) * 1e3 / n
+            if name == "aligned_heads_batched":
+                crops = outs
+        objs = sum(len(files) for _, _, files in os.walk(tmp))
+    log("  host ms/img over the 8 results: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f" ({sum(len(b.heads) for b in batch)} heads, {objs} OBJ files)")
+    worst = 0.0
+    for res, got in zip(batch, crops):
+        cpu = PredictionResult(res.original_image, res.heads, device="cpu")
+        want = aligned_heads_batched(cpu)
+        if got.shape != want.shape:
+            raise AssertionError(f"aligned crops {got.shape} on the card, {want.shape} on the CPU")
+        if got.size:
+            worst = max(worst, float(np.abs(got - want).max()))
+    log(f"  aligned_heads_batched card vs CPU: max |d| {worst:.3g} (0-255 scale)")
+    if worst > 1e-3:
+        raise AssertionError("aligned_heads_batched differs between the card and the CPU")
+    return launches, times
+
+
+def match_streams(got, want):
+    """(worst box IoU, worst score |d|, matched) of ``want``'s valid
+    detections against ``got``'s, matched by IoU, image by image."""
+    worst_iou, worst_score, matched = 1.0, 0.0, 0
+    for g, w in zip(got, want):
+        gb, gs = g["boxes_xyxy"][g["valid"]], g["scores"][g["valid"]]
+        for box, score in zip(w["boxes_xyxy"][w["valid"]], w["scores"][w["valid"]]):
+            if not len(gb):
+                return 0.0, 1.0, matched
+            lt = np.maximum(box[:2], gb[:, :2])
+            rb = np.minimum(box[2:], gb[:, 2:])
+            inter = np.prod(np.clip(rb - lt, 0, None), axis=1)
+            area = np.prod(box[2:] - box[:2]) + np.prod(gb[:, 2:] - gb[:, :2], axis=1) - inter
+            ious = inter / np.maximum(area, 1e-12)
+            k = int(np.argmax(ious))
+            worst_iou = min(worst_iou, float(ious[k]))
+            worst_score = max(worst_score, abs(float(gs[k] - score)))
+            matched += 1
+    return worst_iou, worst_score, matched
+
+
+def stream_layers(stream, scenes):
+    """The streaming layers one at a time on one batch: host letterbox (one
+    thread), the copy into a pinned buffer and on to the card, the step
+    (forward, NMS, mesh decode), the download and emission."""
+    from head_detector_tpu_torch.pipeline import _Pending, _Slot
+
+    dev = stream.device
+    canvases = [stream._letterbox_host(im)[0] for im in scenes]
+    t0 = time.perf_counter()
+    canvases = [stream._letterbox_host(im)[0] for im in scenes]
+    t1 = time.perf_counter()
+    slot = _Slot((len(scenes),) + canvases[0].shape, dev)
+    copy_stream = torch.cuda.Stream(dev)
+    stream._upload(slot, canvases, copy_stream)
+    slot.copied.synchronize()
+    t2 = time.perf_counter()
+    stream._upload(slot, canvases, copy_stream)
+    t3 = time.perf_counter()
+    slot.copied.synchronize()
+    t4 = time.perf_counter()
+    torch.cuda.current_stream(dev).wait_event(slot.copied)
+    stream._step(slot.dev, slot)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    out = stream._step(slot.dev, slot)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    emitted = list(stream._emit(_Pending(out, [1.0] * len(scenes), dev)))
+    t7 = time.perf_counter()
+    n = len(emitted)
+    log(f"  layers on one batch of {n}: letterbox {(t1 - t0) * 1e3 / n:.3f} ms/img on one "
+        f"thread, pinned copy {(t3 - t2) * 1e3:.3f} ms + to the card {(t4 - t3) * 1e3:.3f} ms, "
+        f"step {(t6 - t5) * 1e3:.3f} ms, download + emit {(t7 - t6) * 1e3:.3f} ms a batch")
+
+
+def phase_streaming(flame_model):
+    """StreamingDetector at full width: images/s, busy share, card vs CPU."""
+    from head_detector_tpu_torch.ops import rasterize as r
+    from head_detector_tpu_torch.pipeline import StreamingDetector
+    from head_detector_tpu_torch.train.dataset import render_scene
+
+    dev = flame_model.device
+    kw = dict(model_name=MODEL, checkpoint=CHECKPOINT, image_size=STREAM_SIZE,
+              mesh_subset="head", decode_budget=256)
+    t0 = time.perf_counter()
+    stream = StreamingDetector(batch_size=STREAM_BATCH, dtype=torch.bfloat16,
+                               verts_dtype=torch.bfloat16, device=dev, **kw)
+    log(f"  StreamingDetector ready in {time.perf_counter() - t0:.2f} s")
+
+    r.rasterize_zbuffer_cuda.launches = 0
+    r.pncc_render_cuda.launches = 0
+    torch.cuda.synchronize()
+    scenes = [render_scene(SCENE_SEED, i, STREAM_SIZE, MAX_HEADS, device=dev,
+                           flame_model=flame_model) for i in range(STREAM_SCENES)]
+    out = list(stream.run(scenes))  # first run: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(stream.run(scenes))
+    torch.cuda.synchronize()
+    run_ips = len(scenes) / (time.perf_counter() - t0)
+    launches = {"rasterize_zbuffer": r.rasterize_zbuffer_cuda.launches,
+                "pncc_render": r.pncc_render_cuda.launches}
+    dets = [int(o["valid"].sum()) for o in out]
+    meshes = sum(len(o["vertices"]) for o in out)
+    log(f"  run() over {len(scenes)} scenes at {STREAM_SIZE} px: {run_ips:.1f} images/s "
+        f"(second run), {sum(dets)} detections, {meshes} meshes decoded; launches "
+        f"(rendering the scenes included): {launches}")
+    if len(out) != len(scenes) or sum(dets) == 0 or launches["rasterize_zbuffer"] <= 0:
+        raise AssertionError("streaming run emitted too little")
+    for o in out:
+        for slot, v in o["vertices"].items():
+            if not (o["valid"][slot] and v.shape == (2470, 3) and v.device.type == dev.type
+                    and v.dtype == torch.bfloat16):
+                raise AssertionError(f"malformed streamed mesh {tuple(v.shape)} {v.dtype}")
+        if not np.isfinite(o["boxes_xyxy"]).all():
+            raise AssertionError("non-finite streamed boxes")
+
+    stream_layers(stream, scenes[:STREAM_BATCH])
+    host_ips = stream.throughput(256)
+    device_ips = stream.throughput(256, device_feed=True)
+    log(f"  throughput(256): host-fed {host_ips:.1f} images/s, device-fed {device_ips:.1f} "
+        f"images/s")
+    try:
+        busy = profile_window(f"run() over {len(scenes)} scenes, batch {STREAM_BATCH}",
+                              lambda: list(stream.run(scenes)))
+        log(f"  streaming device busy share: "
+            f"{'not measured' if busy is None else f'{100 * busy:.1f}%'}")
+    except RuntimeError as exc:  # the profiler is a reading, not a check
+        busy = None
+        log(f"  streaming profiler: not measured ({exc})")
+
+    # card vs CPU at float32, and card bfloat16 vs card float32, on 4 scenes
+    four = scenes[:4]
+    f32 = dict(batch_size=4, dtype=torch.float32, verts_dtype=torch.float32, **kw)
+    card = list(StreamingDetector(device=dev, **f32).run(four))
+    cpu = list(StreamingDetector(device="cpu", **f32).run(four))
+    iou, score, matched = match_streams(card, cpu)
+    rel = 0.0
+    for c, h in zip(card, cpu):
+        if sorted(c["vertices"]) != sorted(h["vertices"]):
+            raise AssertionError("card and CPU decoded different slots")
+        for slot, v in c["vertices"].items():
+            ref = h["vertices"][slot]
+            rel = max(rel, float(torch.linalg.norm(v.cpu() - ref) / torch.linalg.norm(ref)))
+    log(f"  float32, card vs CPU on 4 scenes: {matched} detections, min box IoU {iou:.6f}, "
+        f"max score |d| {score:.3g}, max vertex rel L2 {rel:.3e}")
+    if matched == 0 or iou < 0.99 or rel > 1e-3 or \
+            [int(o["valid"].sum()) for o in card] != [int(o["valid"].sum()) for o in cpu]:
+        raise AssertionError("streaming: card and CPU disagree at float32")
+    bf16 = list(stream.run(four))
+    iou16, score16, matched16 = match_streams(bf16, card)
+    log(f"  bfloat16 vs float32 on the card, 4 scenes: {matched16} detections, min box IoU "
+        f"{iou16:.6f}, max score |d| {score16:.3g}")
+    if matched16 == 0 or iou16 < 0.95 or score16 > 2e-2:
+        raise AssertionError("streaming: bfloat16 strays from float32")
+    return {"run_images_per_s": run_ips, "host_fed_images_per_s": host_ips,
+            "device_fed_images_per_s": device_ips, "device_busy_share": busy}
 
 
 def main() -> int:
@@ -544,6 +816,13 @@ def main() -> int:
 
     log("phase 4: card vs CPU")
     phase_card_vs_cpu(detector, scenes[0])
+
+    log("phase 5: detector options and the result API")
+    phase_options_and_results(detector, scenes)
+
+    log("phase 6: streaming")
+    streaming = phase_streaming(flame_model)
+    log("  " + json.dumps({"streaming": streaming}))
 
     print(json.dumps({"kernels": entries}))
     print(smi)

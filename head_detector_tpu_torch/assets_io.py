@@ -167,3 +167,33 @@ def load_flame_assets(flame_path: Optional[str] = None) -> FlameAssets:
         triangles=triangles,
         synthetic_basis=synthetic,
     )
+
+
+@functools.lru_cache(maxsize=4)
+def load_keypoint_indices(count: int = 445) -> np.ndarray:
+    """The ``count``-keypoint vertex set: the region files of
+    ``assets/face_keypoints/keypoints_<count>`` concatenated in name order
+    (a file holding a dict of sub-regions contributes them in key order)."""
+    base = os.path.join(ASSET_DIR, "face_keypoints", f"keypoints_{count}")
+    parts = []
+    for name in sorted(os.listdir(base)):
+        arr = np.load(os.path.join(base, name), allow_pickle=True)
+        value = arr[()] if arr.dtype == object else arr
+        if isinstance(value, dict):
+            for key in sorted(value):
+                parts.append(np.asarray(value[key]).reshape(-1).astype(np.int32))
+        else:
+            parts.append(np.asarray(value).reshape(-1).astype(np.int32))
+    return np.concatenate(parts)
+
+
+def get_indices() -> dict:
+    """Named vertex subsets: ``head``, ``face``, ``face_w_ears`` and
+    ``keypoint_445``."""
+    assets = load_flame_assets()
+    return {
+        "head": assets.head_indices,
+        "face": assets.face_indices,
+        "face_w_ears": assets.head_w_ears_indices,
+        "keypoint_445": load_keypoint_indices(445),
+    }

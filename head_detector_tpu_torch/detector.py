@@ -1,22 +1,26 @@
 """HeadDetector: image(s) in, PredictionResult(s) out, on one torch device.
 
-Counterpart of ``head_detector_tpu/detector.py`` with its default options
-(deploy-fused weights, sparse FLAME towers, deferred globalisation).  Per
-batch the path is:
+Counterpart of ``head_detector_tpu/detector.py`` with deploy-fused weights,
+sparse FLAME towers and deferred globalisation.  Per batch the path is:
 
 1. one uint8 upload per input shape, lanczos4 letterbox on the device;
-2. the deploy YoloHeads forward with the FLAME towers skipped;
-3. DFL decode, fixed-size greedy NMS, compaction of the top-m detections;
-4. the FLAME towers at the kept anchors only, globalisation, FLAME LBS with
-   the 6DoF transform folded in (``fused_project_vertices``);
-5. un-letterbox and roll/pitch/yaw, then one download of the valid rows.
+2. the deploy YoloHeads forward in the compute ``dtype`` with the FLAME
+   towers skipped;
+3. DFL decode, fixed-size greedy NMS (with the fusion neighbours when
+   ``param_fusion``), compaction of the top-m detections;
+4. the FLAME towers at the kept anchors only (at every neighbour's anchor,
+   then the weighted mean, with ``param_fusion``), globalisation, FLAME LBS
+   in float32 with the 6DoF transform folded in (``fused_project_vertices``);
+5. un-letterbox and roll/pitch/yaw, the vertices cast to the wire dtype on
+   the device, then one download of the valid rows.
 
-``__call__`` is ``predict_batch`` on one image with a budget of
-``post_nms_max`` detections, which keeps every NMS survivor.  Float32
-throughout, TF32 off (see ``device.py``).  Weights load from a flax msgpack
-checkpoint (``checkpoint=`` or ``HDT_CHECKPOINT``) in the training or the
-deploy layout.  ``compact_wire``, ``param_fusion`` and random initialisation
-are not ported yet.
+``__call__`` is step 1-5 on one image with a budget of ``compact_wire``
+detections, or of ``post_nms_max`` (every NMS survivor) without a compact
+wire, and then returns float32 vertices as the reference does.  Float32
+operations run with TF32 off (see ``device.py``).  Weights load from a flax
+msgpack checkpoint (``checkpoint=`` or ``HDT_CHECKPOINT``) in the training
+or the deploy layout; random initialisation and ``deploy=False`` need the
+training-layout model, which the port does not have yet.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from head_detector_tpu_torch.device import exact_float32, resolve_device
 from head_detector_tpu_torch.flame import FlameModel, fused_project_vertices
 from head_detector_tpu_torch.head_info import NUM_FLAME_PARAMS, Bbox, FlameParams, HeadMetadata, RPY
 from head_detector_tpu_torch.models import build_model, get_arch, globalize_flame
+from head_detector_tpu_torch.models.heads import RawOutputs
 from head_detector_tpu_torch.ops.letterbox import letterbox_batch, letterbox_spec
 from head_detector_tpu_torch.ops.nms import batched_nms, compact_detections
 from head_detector_tpu_torch.ops.rotation import rotation_mats_to_rpy
@@ -45,10 +50,22 @@ _BOX = slice(1, 5)
 _SCORE = 5
 _PARAMS = slice(6, 6 + NUM_FLAME_PARAMS)
 _RPY = slice(6 + NUM_FLAME_PARAMS, 9 + NUM_FLAME_PARAMS)
+_WIRE_DTYPES = {"f32": torch.float32, "f16": torch.float16}
 
 
 class HeadDetector:
-    """Detect human heads + FLAME meshes in one forward pass."""
+    """Detect human heads + FLAME meshes in one forward pass.
+
+    ``compact_wire=M``: ``__call__`` decodes and downloads only the top M
+    slots (valid first, then score); an image with <= M detections gives the
+    same result.  ``wire_verts_dtype="f16"`` casts the vertices to float16 on
+    the device before the download (``predict_batch`` always, ``__call__``
+    with a compact wire); below 1024 px that costs < 0.25 px.
+    ``param_fusion=True`` replaces each kept head's FLAME params by the
+    score-weighted mean over its top ``fusion_neighbors`` candidates of IoU
+    >= ``fusion_iou`` (``ops/nms.py``); boxes, scores and the detection set
+    do not change.  ``dtype`` is the model's compute dtype
+    (``torch.float32`` or ``torch.bfloat16``); FLAME LBS stays float32."""
 
     def __init__(
         self,
@@ -56,10 +73,20 @@ class HeadDetector:
         image_size: int = 640,
         checkpoint: Optional[str] = None,
         device="cuda",
+        dtype: torch.dtype = torch.float32,
         pre_nms_max: int = 1000,
         post_nms_max: int = 100,
         iou_threshold: float = 0.5,
+        compact_wire: Optional[int] = None,
+        wire_verts_dtype: str = "f32",
+        param_fusion: bool = False,
+        fusion_neighbors: int = 4,
+        fusion_iou: float = 0.7,
     ):
+        if wire_verts_dtype not in _WIRE_DTYPES:
+            raise ValueError(f"wire_verts_dtype must be f32|f16, got {wire_verts_dtype!r}")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         self.device = resolve_device(device)
         checkpoint = checkpoint or os.environ.get("HDT_CHECKPOINT")
         if not checkpoint:
@@ -69,6 +96,10 @@ class HeadDetector:
         self._pre_nms_max = pre_nms_max
         self._post_nms_max = post_nms_max
         self._iou_threshold = iou_threshold
+        self._compact_wire = int(compact_wire) if compact_wire else 0
+        self._wire_vdtype = _WIRE_DTYPES[wire_verts_dtype]
+        self._fusion_neighbors = int(fusion_neighbors) if param_fusion else 0
+        self._fusion_iou = float(fusion_iou)
         self._arch = get_arch(model)
 
         variables = load_variables(checkpoint)
@@ -77,16 +108,35 @@ class HeadDetector:
         if used != total:
             raise ValueError(f"{checkpoint}: restored {used}/{total} leaves")
         self.restored_leaves = (used, total)
-        net = build_model(self._arch, defer_globalization=True, skip_flame=True)
+        net = build_model(self._arch, defer_globalization=True, skip_flame=True, dtype=dtype)
         net.load_state_dict(state, strict=True)
         self._model = net.to(self.device).eval()
         self._flame = FlameModel.from_assets(device=self.device)
 
     # ------------------------------------------------------------------ #
+    def _fused_rows(self, feats, raw: RawOutputs, nb_idx: torch.Tensor,
+                    nb_w: torch.Tensor, batch_idx: torch.Tensor) -> torch.Tensor:
+        """Globalised, score-weighted FLAME params [K, 413] over each slot's
+        neighbours ``nb_idx`` [K, n] with weights ``nb_w`` [K, n].  Every
+        neighbour row is globalised at its own anchor before the mean (the
+        same as fusing globalised dense rows: globalisation is a per-anchor
+        affine on the translation and scale slots)."""
+        k, n = nb_idx.shape
+        flat = nb_idx.reshape(k * n)
+        rows = sparse_flame_rows(
+            self._model.heads, self._arch, feats, flat[None],
+            batch_idx=batch_idx.repeat_interleave(n)[None],
+        )[0]
+        glob = globalize_flame(rows, flat, raw.anchor_points, raw.stride_tensor)
+        wsum = torch.clamp(nb_w.sum(dim=1, keepdim=True), min=1e-12)
+        return (nb_w[..., None] * glob.reshape(k, n, -1)).sum(dim=1) / wsum
+
     @torch.no_grad()
-    def _detect(self, images, confidence_threshold, pads, scales, m):
+    def _detect(self, images, confidence_threshold, pads, scales, m, verts_dtype):
         """images [B, S, S, 3] float; pads [B, 2]; scales [B] -> (meta
-        [n, 423] numpy, verts [n, V, 3] numpy) for the n valid rows."""
+        [n, 423] numpy, verts [n, V, 3] float32 numpy) for the n valid rows
+        of the top ``m`` slots, the vertices rounded to ``verts_dtype`` on
+        the device."""
         with exact_float32():
             decoded, raw, feats = self._model(
                 images.permute(0, 3, 1, 2).contiguous(), return_feats=True
@@ -97,15 +147,25 @@ class HeadDetector:
                 iou_threshold=self._iou_threshold,
                 pre_nms_max=self._pre_nms_max,
                 post_nms_max=self._post_nms_max,
+                fusion_iou=self._fusion_iou,
+                return_neighbors=self._fusion_neighbors,
             )
+            nb = None
+            if self._fusion_neighbors:
+                res, nb = res
             cres = compact_detections(res, m)
-            rows = sparse_flame_rows(
-                self._model.heads, self._arch, feats,
-                cres.anchor_idx[None], batch_idx=cres.batch_idx[None],
-            )[0]
-            params = globalize_flame(
-                rows, cres.anchor_idx, raw.anchor_points, raw.stride_tensor
-            )
+            if nb is not None:
+                at = (cres.batch_idx, cres.slot_idx)
+                params = self._fused_rows(feats, raw, nb.anchor_idx[at], nb.weights[at],
+                                          cres.batch_idx)
+            else:
+                rows = sparse_flame_rows(
+                    self._model.heads, self._arch, feats,
+                    cres.anchor_idx[None], batch_idx=cres.batch_idx[None],
+                )[0]
+                params = globalize_flame(
+                    rows, cres.anchor_idx, raw.anchor_points, raw.stride_tensor
+                )
             R, verts = fused_project_vertices(self._flame, params, to_2d=False)
 
             bi = cres.batch_idx
@@ -126,7 +186,8 @@ class HeadDetector:
                  params, rpy, cres.valid.to(torch.float32)[:, None]], dim=1,
             )
             keep = cres.valid.nonzero()[:, 0]
-            return meta[keep].cpu().numpy(), verts[keep].cpu().numpy()
+            verts = verts[keep].to(verts_dtype).cpu().numpy().astype(np.float32)
+            return meta[keep].cpu().numpy(), verts
 
     def predict_batch(
         self,
@@ -139,6 +200,13 @@ class HeadDetector:
         ``max_detections`` bounds the decoded detections across the batch
         (default ``16 * len(images)``, capped at ``post_nms_max *
         len(images)``); the highest scores batch-wide win if it binds."""
+        return self._predict(images, confidence_threshold,
+                             min(max_detections or 16 * len(images),
+                                 self._post_nms_max * len(images)),
+                             self._wire_vdtype)
+
+    def _predict(self, images, confidence_threshold: float, m: int,
+                 verts_dtype: torch.dtype) -> List[PredictionResult]:
         originals = [self._convert_image(im) for im in images]
         b = len(originals)
         by_shape: Dict[tuple, List[int]] = {}
@@ -156,13 +224,13 @@ class HeadDetector:
                 pads.append((float(spec.pad_left), float(spec.pad_top)))
                 scales.append(float(spec.scale))
         imgs = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
-        m = min(max_detections or 16 * b, self._post_nms_max * b)
         meta, verts = self._detect(
             imgs,
             float(confidence_threshold),
             torch.tensor(pads, dtype=torch.float32, device=self.device),
             torch.tensor(scales, dtype=torch.float32, device=self.device),
             m,
+            verts_dtype,
         )
         results = [None] * b
         for j, i in enumerate(order):  # j = row fed to the model
@@ -182,9 +250,11 @@ class HeadDetector:
         image: Union[str, Image.Image, np.ndarray],
         confidence_threshold: float = 0.5,
     ) -> PredictionResult:
-        return self.predict_batch(
-            [image], confidence_threshold, max_detections=self._post_nms_max
-        )[0]
+        if self._compact_wire:
+            return self._predict([image], confidence_threshold, self._compact_wire,
+                                 self._wire_vdtype)[0]
+        return self._predict([image], confidence_threshold, self._post_nms_max,
+                             torch.float32)[0]
 
     # ------------------------------------------------------------------ #
     @staticmethod

@@ -11,6 +11,8 @@ Counterpart of ``head_detector_tpu/flame.py``.  Conventions kept exactly:
 
 Every contraction runs in full float32 (TF32 off, see ``device.py``).  The
 ``[N, 400] x [400, V*3]`` blendshape product is a plain ``torch.matmul``.
+``FlameModel.subset`` decodes a vertex subset with the joints of the full
+mesh (the joint regression folded into per-joint constants in float64).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from head_detector_tpu_torch.assets_io import FlameAssets, load_flame_assets
@@ -41,6 +44,10 @@ class FlameModel:
     lbs_weights: torch.Tensor  # [V, J]
     parents: Tuple[int, ...]
     faces: torch.Tensor  # [F, 3] int32
+    # set by subset(): joints regressed from betas directly, so that the
+    # per-vertex arrays may cover a subset while the joints stay the full mesh's
+    joint_template: Optional[torch.Tensor] = None  # [J, 3]
+    joint_shapedirs: Optional[torch.Tensor] = None  # [400, J*3]
 
     @classmethod
     def from_assets(
@@ -75,6 +82,48 @@ class FlameModel:
     @property
     def device(self) -> torch.device:
         return self.v_template.device
+
+    def subset(self, indices) -> "FlameModel":
+        """The same decode on ``len(indices)`` vertices.  Joints regress from
+        the full shaped mesh, which is affine in betas, so they fold into
+        ``joint_template = Jreg @ v_template`` and ``joint_shapedirs = Jreg @
+        shapedirs`` (float64, then the model's dtype) while every per-vertex
+        array is sliced.  Faces keep the triangles wholly inside the subset,
+        renumbered."""
+        idx = np.asarray(indices, np.int64)
+        v = self.num_vertices
+        nb = self.shapedirs_flat.shape[0]
+        dtype, dev = self.v_template.dtype, self.device
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        sd3 = host(self.shapedirs_flat).reshape(nb, v, 3)
+        jreg = host(self.j_regressor).astype(np.float64)
+        joint_template = jreg @ host(self.v_template).astype(np.float64)  # [J, 3]
+        joint_shapedirs = np.einsum("jv,kvc->kjc", jreg, sd3.astype(np.float64))
+        nj = jreg.shape[0]
+
+        faces = host(self.faces)
+        inside = np.isin(faces, idx).all(axis=1)
+        remap = np.full(v, -1, np.int64)
+        remap[idx] = np.arange(idx.size)
+        pd3 = host(self.posedirs).reshape(-1, v, 3)
+
+        def t(x, dt=dtype):
+            return torch.as_tensor(np.ascontiguousarray(x), device=dev).to(dt)
+
+        return FlameModel(
+            v_template=t(host(self.v_template)[idx]),
+            shapedirs_flat=t(sd3[:, idx].reshape(nb, idx.size * 3)),
+            posedirs=t(pd3[:, idx].reshape(pd3.shape[0], idx.size * 3)),
+            j_regressor=t(host(self.j_regressor)[:, idx]),
+            lbs_weights=t(host(self.lbs_weights)[idx]),
+            parents=self.parents,
+            faces=t(remap[faces[inside]], torch.int32),
+            joint_template=t(joint_template),
+            joint_shapedirs=t(joint_shapedirs.reshape(nb, nj * 3)),
+        )
 
 
 def _pad_to(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -132,7 +181,12 @@ def lbs(
     with exact_float32():
         offsets = torch.matmul(betas.to(dtype), model.shapedirs_flat).reshape(n, v, 3)
         v_shaped = model.v_template[None] + offsets
-        joints = torch.einsum("jv,nvc->njc", model.j_regressor, v_shaped)
+        if model.joint_template is not None:  # a subset model (see subset())
+            nj = model.joint_template.shape[0]
+            joints = model.joint_template[None] + torch.matmul(
+                betas.to(dtype), model.joint_shapedirs).reshape(n, nj, 3)
+        else:
+            joints = torch.einsum("jv,nvc->njc", model.j_regressor, v_shaped)
 
         num_joints = full_pose.shape[-1] // 3
         rot_mats = rodrigues(full_pose.reshape(n, num_joints, 3))  # [N, J, 3, 3]

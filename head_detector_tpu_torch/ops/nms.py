@@ -10,8 +10,14 @@ the first ``post_nms_max`` kept boxes, padded with invalid slots.
 The greedy pass is the reference's matrix form: iterate ``keep[i] = valid[i]
 & !any_{j<i}(keep[j] & iou[i, j] > t)`` from the all-valid estimate until it
 stops changing, which is the exact greedy answer after at most the
-suppression-chain depth.  ``return_neighbors`` / ``fuse_flame`` (param
-fusion) are not ported yet.
+suppression-chain depth.
+
+Param fusion (``fuse_flame``, ``return_neighbors``) is weighted-box-fusion
+of the FLAME rows: a confidence-passing candidate joins the kept box it
+overlaps best, if that IoU is >= ``fusion_iou`` and its score is not above
+the kept box's (it comes at or after the kept box in score order), with its
+score as weight.  A kept box is always its own candidate.  Boxes, scores and
+the detection set are those of plain NMS.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 
+from head_detector_tpu_torch.device import exact_float32
+
 
 class NMSResult(NamedTuple):
     boxes: torch.Tensor  # [B, K, 4] xyxy
@@ -27,6 +35,16 @@ class NMSResult(NamedTuple):
     flame_params: torch.Tensor  # [B, K, P]
     valid: torch.Tensor  # [B, K] bool
     anchor_idx: torch.Tensor  # [B, K] int64 (0 if invalid)
+
+
+class NeighborInfo(NamedTuple):
+    """Per kept detection, its top-n fusion candidates by weight (ties: the
+    higher-scoring candidate first).  The serving path runs the FLAME towers
+    at these anchors, globalises each row at its own anchor and takes the
+    weighted mean."""
+
+    anchor_idx: torch.Tensor  # [B, K, n] into the anchor axis (0 for empty slots)
+    weights: torch.Tensor  # [B, K, n] float32 fusion weights (0 for empty slots)
 
 
 class CompactDetections(NamedTuple):
@@ -79,8 +97,16 @@ def batched_nms(
     iou_threshold: float = 0.5,
     pre_nms_max: int = 1000,
     post_nms_max: int = 100,
-) -> NMSResult:
-    """All outputs ``[B, min(post_nms_max, k), ...]`` plus a valid mask."""
+    fuse_flame: bool = False,
+    fusion_iou: float = 0.7,
+    return_neighbors: int = 0,
+):
+    """All outputs ``[B, min(post_nms_max, k), ...]`` plus a valid mask.
+
+    ``fuse_flame`` replaces each kept row of ``flame_params`` by the
+    weighted mean of its candidates' rows.  ``return_neighbors=n`` returns
+    ``(NMSResult, NeighborInfo)`` with ``min(n, k)`` candidates per kept box;
+    the truncation is exact when a cluster has at most n candidates."""
     if scores.dim() == 3:
         scores = scores[..., 0]
     num_anchors = scores.shape[1]
@@ -102,15 +128,42 @@ def batched_nms(
     final_idx = torch.gather(top_idx, 1, sel)
 
     p = flame_params.shape[-1]
-    selected_flame = torch.gather(flame_params, 1, final_idx[..., None].expand(-1, -1, p))
     sel_boxes = torch.gather(top_boxes, 1, sel[..., None].expand(-1, -1, 4))
-    return NMSResult(
+    w = None
+    if fuse_flame or return_neighbors:
+        iou_ck = box_iou_xyxy(sel_boxes, top_boxes)  # [B, K_kept, k]
+        iou_ck = torch.where(out_valid[..., None], iou_ck, -1.0)
+        # a candidate joins only its best-IoU kept box (first on a tie) ...
+        best_kept = torch.argmax(iou_ck, dim=1)  # [B, k]
+        slots = torch.arange(sel.shape[1], device=sel.device)
+        assign = best_kept[:, None, :] == slots[None, :, None]
+        # ... and only down the score order, so a kept box is its own
+        # top-weight candidate (n = 1 is plain NMS)
+        downrank = order[None, None, :] >= sel[..., None]
+        member = (iou_ck >= fusion_iou) & assign & downrank & top_valid[:, None, :]
+        w = torch.where(member, top_scores[:, None, :], 0.0).to(torch.float32)
+    if fuse_flame:
+        cand = torch.gather(flame_params, 1, top_idx[..., None].expand(-1, -1, p))
+        with exact_float32():
+            fused = torch.matmul(w, cand.to(torch.float32))
+        fused = fused / torch.clamp(w.sum(dim=2, keepdim=True), min=1e-12)
+        selected_flame = fused.to(flame_params.dtype)
+    else:
+        selected_flame = torch.gather(flame_params, 1, final_idx[..., None].expand(-1, -1, p))
+    result = NMSResult(
         boxes=torch.where(out_valid[..., None], sel_boxes, 0.0),
         scores=torch.where(out_valid, torch.gather(top_scores, 1, sel), 0.0),
         flame_params=torch.where(out_valid[..., None], selected_flame, 0.0),
         valid=out_valid,
         anchor_idx=torch.where(out_valid, final_idx, 0),
     )
+    if not return_neighbors:
+        return result
+    n = min(int(return_neighbors), k)
+    wn, jn = torch.sort(w, dim=2, descending=True, stable=True)
+    wn, jn = wn[..., :n], jn[..., :n]
+    nb_anchor = torch.gather(top_idx[:, None, :].expand(-1, jn.shape[1], -1), 2, jn)
+    return result, NeighborInfo(anchor_idx=torch.where(wn > 0, nb_anchor, 0), weights=wn)
 
 
 def single_image_nms(
@@ -121,14 +174,21 @@ def single_image_nms(
     iou_threshold: float = 0.5,
     pre_nms_max: int = 1000,
     post_nms_max: int = 100,
-) -> NMSResult:
+    fuse_flame: bool = False,
+    fusion_iou: float = 0.7,
+    return_neighbors: int = 0,
+):
     """One image: :func:`batched_nms` on a batch of one, batch axis removed."""
-    res = batched_nms(
+    out = batched_nms(
         boxes_xyxy[None], scores.reshape(1, -1), flame_params[None],
         confidence_threshold=confidence_threshold, iou_threshold=iou_threshold,
-        pre_nms_max=pre_nms_max, post_nms_max=post_nms_max,
+        pre_nms_max=pre_nms_max, post_nms_max=post_nms_max, fuse_flame=fuse_flame,
+        fusion_iou=fusion_iou, return_neighbors=return_neighbors,
     )
-    return NMSResult(*(t[0] for t in res))
+    if return_neighbors:
+        res, nb = out
+        return NMSResult(*(t[0] for t in res)), NeighborInfo(*(t[0] for t in nb))
+    return NMSResult(*(t[0] for t in out))
 
 
 def compact_detections(res: NMSResult, max_total: int) -> CompactDetections:

@@ -443,3 +443,18 @@ def rasterize(
         height=height, width=width, reverse=reverse,
     )
     return composite(bg, canvas.cpu().numpy(), hit.cpu().numpy(), alpha)
+
+
+def get_normal(vertices: torch.Tensor, triangles: torch.Tensor) -> torch.Tensor:
+    """Per-vertex normals [V, 3]: each triangle's unnormalised normal (the
+    cross product of its edges) summed into its three corners, then
+    L2-normalised; a vertex no triangle touches keeps a zero normal."""
+    vertices = torch.as_tensor(vertices).to(torch.float32)
+    triangles = torch.as_tensor(triangles, device=vertices.device).long()
+    tv = vertices[triangles]  # [F, 3, 3]
+    tn = torch.linalg.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])  # [F, 3]
+    normal = torch.zeros_like(vertices)
+    for k in range(3):
+        normal.index_add_(0, triangles[:, k], tn)
+    norm = torch.linalg.vector_norm(normal, dim=-1, keepdim=True)
+    return torch.where(norm > 0, normal / torch.where(norm == 0, 1.0, norm), normal)

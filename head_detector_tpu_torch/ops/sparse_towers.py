@@ -7,7 +7,8 @@ patch of the neck map around an anchor yields exactly that anchor's
 every layer at the map border, so out-of-map pixels are re-zeroed after
 every layer (``_boundary_masks``); those masks are load-bearing.
 
-Layout: the neck maps are NCHW; patches are ``[R, K, C, rf, rf]``.
+Layout: the neck maps are NCHW; patches are ``[R, K, C, rf, rf]``.  The
+towers run in the features' dtype; the rows come back in float32.
 """
 
 from __future__ import annotations
@@ -77,7 +78,13 @@ def _tower_rows(head: YoloHeadsDFLHead, patches: torch.Tensor,
                 masks: List[torch.Tensor]) -> torch.Tensor:
     """pose_stem + the six towers on patches -> [R, K, 413] rows."""
     r, k, c, rf, _ = patches.shape
-    x = head.pose_stem(patches.reshape(r * k, c, rf, rf))  # 1x1 + BN + ReLU
+    # pose stem: 1x1 conv, BatchNorm folded to a multiply-add in the
+    # features' dtype (as the reference's sparse path does), ReLU
+    stem = head.pose_stem
+    x = F.conv2d(patches.reshape(r * k, c, rf, rf), stem.conv.weight)
+    mul = stem.bn.weight / torch.sqrt(stem.bn.running_var + stem.bn.eps)
+    add = stem.bn.bias - stem.bn.running_mean * mul
+    x = F.relu(x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None])
     x = x * masks[0].to(x.dtype)  # BN/ReLU make padded zeros nonzero
 
     outputs = []

@@ -192,3 +192,60 @@ def test_pncc_card_matches_cpu(cuda_device):
     want = PNCCProcessor(device="cpu")(image, heads)
     diff = np.abs(got.astype(int) - want.astype(int)).max(-1)
     assert got.any() and (diff > 0).mean() <= 0.001
+
+
+@pytest.mark.cuda
+def test_warps_card_match_cpu(cuda_device):
+    """The batched warps of the aligned-crop path, card against CPU, within
+    1e-3 on a 0-255 scale (TF32 off on both)."""
+    from head_detector_tpu_torch.ops import warp
+
+    rng = np.random.RandomState(5)
+    picture = torch.from_numpy(rng.uniform(0, 255, (90, 120, 3)).astype(np.float32))
+    mats = np.array([[[1.2, -0.3, 10.0], [0.3, 1.2, -5.0]],
+                     [[0.7, 0.1, -20.0], [-0.1, 0.7, 30.0]]])
+    inv = torch.from_numpy(warp.invert_affine(mats))
+    boxes = torch.tensor([[10.0, 5.0, 70.0, 65.0], [-10.0, 30.0, 50.0, 100.0]])
+    angles = torch.tensor([25.0, -140.0])
+    for fn, args in [
+        (warp.affine_warp, (picture, inv, 48, 56)),
+        (warp.scaled_crops_matmul, (picture, boxes, 32)),
+        (warp.rotate_crops_matmul, (picture[None, :64, :64].repeat(2, 1, 1, 1), angles)),
+        (warp.aligned_crops_matmul, (picture, boxes, angles, 32)),
+    ]:
+        want = fn(*args)
+        got = fn(*[a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args])
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_streaming_batch_on_card_matches_cpu(cuda_device):
+    """One float32 batch of rendered scenes through StreamingDetector (M
+    checkpoint, 256 px, batch 4, a short tail batch) on the card and on the
+    CPU: the same valid slots, scores within 1e-4, boxes within 0.05 px,
+    vertices (float32 on the wire) relative L2 <= 1e-3; the vertices stay on
+    the card."""
+    import os
+
+    from head_detector_tpu_torch.pipeline import StreamingDetector
+    from head_detector_tpu_torch.train.dataset import render_scene
+
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "checkpoints", "flagship_ema.msgpack")
+    scenes = [render_scene(11, i, size=256, max_heads=3, device="cpu") for i in range(5)]
+    kw = dict(model_name="yolo_heads_m", checkpoint=ckpt, image_size=256, batch_size=4,
+              dtype=torch.float32, verts_dtype=torch.float32, workers=2)
+    got = list(StreamingDetector(device=cuda_device, **kw).run(scenes))
+    want = list(StreamingDetector(device="cpu", **kw).run(scenes))
+    assert len(got) == len(want) == 5
+    assert sum(int(w["valid"].sum()) for w in want) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["valid"], w["valid"])
+        np.testing.assert_allclose(g["scores"], w["scores"], atol=1e-4)
+        np.testing.assert_allclose(g["boxes_xyxy"], w["boxes_xyxy"], atol=0.05)
+        assert sorted(g["vertices"]) == sorted(w["vertices"])
+        for slot, v in g["vertices"].items():
+            assert v.device.type == "cuda"
+            ref = w["vertices"][slot]
+            assert float(torch.linalg.norm(v.cpu() - ref) / torch.linalg.norm(ref)) <= 1e-3

@@ -146,7 +146,9 @@ def test_port_imports_no_jax():
         "mods = ['head_detector_tpu_torch', 'head_detector_tpu_torch.detector',\n"
         "        'head_detector_tpu_torch.pncc', 'head_detector_tpu_torch.train.dataset',\n"
         "        'head_detector_tpu_torch.weights', 'head_detector_tpu_torch.cuda_build',\n"
-        "        'chip_smoke']\n"
+        "        'head_detector_tpu_torch.pipeline', 'head_detector_tpu_torch.utils',\n"
+        "        'head_detector_tpu_torch.draw_utils', 'head_detector_tpu_torch.ops.warp',\n"
+        "        'head_detector_tpu_torch.evaluation.head_alignment', 'chip_smoke']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "       or m == 'head_detector_tpu' or m.startswith('head_detector_tpu.')]\n"

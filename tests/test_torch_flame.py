@@ -120,3 +120,41 @@ def test_flame_vertices_parity(models, params, zero_rot):
         tm, head_info.FlameParams.from_3dmm(torch.from_numpy(params)), zero_rot=zero_rot
     )
     assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("subset", ["head", "face", "keypoint_445"])
+def test_subset_decode_matches_jax_and_full_rows(models, params, subset):
+    """FlameModel.subset: the subset decode against JAX's and against the
+    rows of the full decode (the joints stay the full mesh's); relative L2
+    <= 1e-5.  Named subsets and the remapped faces equal JAX's."""
+    jm, tm = models
+    idx = assets_io.get_indices()[subset]
+    np.testing.assert_array_equal(idx, jax_assets.get_indices()[subset])
+    jsub, tsub = jm.subset(idx), tm.subset(idx)
+    np.testing.assert_array_equal(tsub.faces.numpy(), np.asarray(jsub.faces))
+    np.testing.assert_allclose(tsub.joint_template.numpy(), np.asarray(jsub.joint_template),
+                               rtol=1e-6, atol=1e-7)
+    _, want = jax_flame.fused_project_vertices(jsub, jnp.asarray(params))
+    _, got = flame.fused_project_vertices(tsub, torch.from_numpy(params))
+    _, full = flame.fused_project_vertices(tm, torch.from_numpy(params))
+    assert got.shape == (8, idx.size, 3)
+    assert _rel(got, want) <= 1e-5
+    assert _rel(got, full[:, idx]) <= 1e-5
+
+
+@pytest.mark.parametrize("subset", [None, "face"])
+def test_get_normal_matches_jax(models, params, subset):
+    """Per-vertex normals of a posed mesh (on a subset: vertices no
+    triangle touches keep a zero normal) against JAX within 1e-5."""
+    from head_detector_tpu.ops.rasterize import get_normal as jax_get_normal
+    from head_detector_tpu_torch.ops.rasterize import get_normal
+
+    _, tm = models
+    model = tm.subset(assets_io.get_indices()[subset]) if subset else tm
+    _, verts = flame.fused_project_vertices(model, torch.from_numpy(params[:1]))
+    v, faces = verts[0].numpy(), model.faces.numpy()
+    want = np.asarray(jax_get_normal(jnp.asarray(v), jnp.asarray(faces)))
+    got = get_normal(torch.from_numpy(v), torch.from_numpy(faces)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    norms = np.linalg.norm(got, axis=1)
+    assert np.allclose(norms[norms > 0], 1.0, atol=1e-5) and (norms > 0).mean() > 0.5
