@@ -38,7 +38,24 @@ Phases (any failure exits non-zero before the final line):
    busy share in a profiled ``run()``; card against CPU at float32 on a
    batch of 4 scenes (box IoU >= 0.99, vertex relative L2 <= 1e-3) and card
    bfloat16 against card float32 on it (box IoU >= 0.95, score |d| <= 2e-2);
-7. one ``{"kernels": [...]}`` line, then the last line
+7. training: ``python -m head_detector_tpu_torch.train``'s trainer
+   (``build_trainer``: ``--config-name yolo_heads_m dataset_params.render=
+   true pretrained_weights=checkpoints/flagship_ema.msgpack``) at 640 px,
+   batch 8, bfloat16, on ``SyntheticHeadsDataset(render=True)`` (64
+   training and 16 validation scenes): the key-matching restore, one epoch
+   of 8 steps, validation and a checkpoint, then a second trainer resumed
+   from that checkpoint (its step, EMA and Adam moments equal to the saved
+   ones) for 8 more steps, with the rasterizer's launch count zeroed before
+   and read after; ms per step, images/s fed by the loader (rendering in
+   its threads) and device-fed, peak memory, every loss component at the
+   first and last step, the validation metrics, the busy share of a
+   profiled step; then one float32 step (TF32 off) of the M checkpoint at
+   320 px, batch 2, on the card against the CPU: loss components to
+   relative 1e-4, every parameter's gradient to relative L2 1e-3 (the
+   biases that only shift a channel before a train-mode BatchNorm have an
+   exact gradient of 0: both sides are held under 1e-5 of the largest
+   gradient there);
+8. one ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is
@@ -71,6 +88,17 @@ FP32_FLOP_PER_S = 67e12
 # float ops per (triangle, pixel of its box) test: 10 for the weights, 5 for
 # the depth, the compares, plus the per-triangle setup amortised
 RASTER_OPS_PER_CANDIDATE = 24
+
+TRAIN_SIZE = 640
+TRAIN_BATCH = 8
+TRAIN_LENGTH = 64
+VAL_LENGTH = 16
+TIMED_STEPS = 8
+CHECK_SIZE = 320
+CHECK_BATCH = 2
+LOSS_RTOL = 1e-4
+GRAD_REL_L2 = 1e-3
+SHIFT_BEFORE_BN = ("branch_3x3_bn.bias", "branch_1x1.bias", "upsample.bias")
 
 STREAM_SIZE = 1024
 STREAM_BATCH = 32
@@ -774,6 +802,229 @@ def phase_streaming(flame_model):
             "device_fed_images_per_s": device_ips, "device_busy_share": busy}
 
 
+def train_argv(ckpt_root: str, device, resume: bool = False) -> list:
+    """The entry point's flags for the smoke run: yolo_heads_m with
+    rendered synthetic scenes, warm-started from the shipped checkpoint,
+    two epochs of which one a process, checkpoints under ``ckpt_root``."""
+    return ["--config-name", MODEL, "--device", str(device),
+            "dataset_params.render=true", f"pretrained_weights={CHECKPOINT}",
+            f"dataset_params.image_size={TRAIN_SIZE}", f"dataset_params.batch_size={TRAIN_BATCH}",
+            f"dataset_params.train_length={TRAIN_LENGTH}",
+            f"dataset_params.val_length={VAL_LENGTH}",
+            "training_hyperparams.max_epochs=2", "training_hyperparams.epochs_per_run=1",
+            f"training_hyperparams.resume={'true' if resume else 'false'}",
+            f"ckpt_root_dir={ckpt_root}", "experiment_name=smoke", "log_every=4"]
+
+
+def _components(comps) -> dict:
+    return {k: float(v.detach()) for k, v in comps.items()}
+
+
+def _synchronize(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def check_resumed(trainer, saved) -> None:
+    """The resumed state equals the checkpoint it was read from, exactly."""
+    state = trainer.state
+    if state.step != saved["step"]:
+        raise AssertionError(f"resumed at step {state.step}, saved {saved['step']}")
+    for k, v in saved["ema_params"].items():
+        if not torch.equal(state.ema[k].cpu(), v):
+            raise AssertionError(f"resumed EMA differs at {k}")
+    current = trainer.model.state_dict()
+    for k, v in {**saved["params"], **saved["batch_stats"]}.items():
+        if not torch.equal(current[k].cpu(), v):
+            raise AssertionError(f"resumed weights differ at {k}")
+    opt = state.optimizer.state_dict()["state"]
+    for i, moments in saved["opt_state"]["state"].items():
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            if not torch.equal(opt[i][k].cpu(), moments[k]):
+                raise AssertionError(f"resumed Adam {k} differs for parameter {i}")
+
+
+def phase_training(dev) -> dict:
+    """The training path: two chunks of the entry point's trainer with a
+    resume between them, then the step alone on pre-collated batches."""
+    from head_detector_tpu_torch.ops import rasterize as r
+    from head_detector_tpu_torch.train.__main__ import build_trainer
+    from head_detector_tpu_torch.train.dataset import SyntheticHeadsDataset, collate_samples
+    from head_detector_tpu_torch.train.loss import Targets
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        trainer = build_trainer(train_argv(root, dev))
+        matched, total = trainer.restored_leaves
+        log(f"  train-layout {MODEL} ({sum(p.numel() for p in trainer.model.parameters())} "
+            f"parameters, bfloat16 compute): key_matching restore {matched}/{total} leaves, "
+            f"trainer ready in {time.perf_counter() - t0:.2f} s")
+        if matched != total:
+            raise AssertionError("the shipped checkpoint did not restore every leaf")
+
+        r.rasterize_zbuffer_cuda.launches = 0
+        r.pncc_render_cuda.launches = 0
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _synchronize(dev)
+        t0 = time.perf_counter()
+        metrics_first = trainer.train()
+        t1 = time.perf_counter()
+        resumed = build_trainer(train_argv(root, dev, resume=True))
+        check_resumed(resumed, resumed.ckpt.restore(resumed.ckpt.latest_step()))
+        log(f"  resumed at step {resumed.state.step}: step, weights, EMA and Adam moments "
+            f"equal the checkpoint's")
+        t2 = time.perf_counter()
+        metrics_second = resumed.train()
+        _synchronize(dev)
+        t3 = time.perf_counter()
+        launches = {"rasterize_zbuffer": r.rasterize_zbuffer_cuda.launches,
+                    "pncc_render": r.pncc_render_cuda.launches}
+        peak = (torch.cuda.max_memory_allocated(dev) if torch.device(dev).type == "cuda"
+                else 0)
+
+        if resumed.state.step != 2 * trainer.steps_per_epoch:
+            raise AssertionError(f"training ended at step {resumed.state.step}")
+        first = _components(trainer.step_components[0])
+        last = _components(resumed.step_components[-1])
+        for name, comps in (("first", first), ("last", last)):
+            if not all(np.isfinite(v) for v in comps.values()):
+                raise AssertionError(f"non-finite loss at the {name} step: {comps}")
+        for name, m in (("first", metrics_first), ("second", metrics_second)):
+            if not {"KeypointsNME", "KeypointsFailureRate", "RPYError"} <= set(m) or \
+                    not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"validation metrics of the {name} chunk: {m}")
+        if launches["rasterize_zbuffer"] <= 0:
+            raise AssertionError("the training path launched no rasterizer kernel")
+        chunks = [t.timings[-1] for t in (trainer, resumed)]
+        loader_ips = [c["images"] / c["train_s"] for c in chunks]
+        log(f"  chunk 1: {(t1 - t0):.2f} s (train {chunks[0]['train_s']:.2f}, validate "
+            f"{chunks[0]['validate_s']:.2f}, save {chunks[0]['save_s']:.2f}); chunk 2 "
+            f"(resumed): {(t3 - t2):.2f} s (train {chunks[1]['train_s']:.2f}, validate "
+            f"{chunks[1]['validate_s']:.2f}, save {chunks[1]['save_s']:.2f})")
+        log(f"  loader-fed (rendering in its threads, first step of a chunk included): "
+            f"{loader_ips[0]:.2f} images/s in chunk 1, {loader_ips[1]:.2f} in chunk 2")
+        log(f"  loss at the first step: {first}")
+        log(f"  loss at the last step:  {last}")
+        log(f"  validation, chunk 1: {metrics_first}")
+        log(f"  validation, chunk 2: {metrics_second}")
+        log(f"  launches on the training path: {launches}; peak memory "
+            f"{peak / 2**30:.3f} GiB")
+
+        # the step alone: batches collated once (the scenes are cached) and
+        # uploaded before the clock starts
+        ds = resumed.train_dataset
+        batches = []
+        for b in range(TIMED_STEPS):
+            images, targets = collate_samples(
+                [ds[i] for i in range(b * TRAIN_BATCH, (b + 1) * TRAIN_BATCH)],
+                resumed.cfg.max_gt_boxes)
+            batches.append((torch.as_tensor(images).to(dev), Targets(*targets).to(dev)))
+        step_ms = []
+        for images, targets in batches:
+            _synchronize(dev)
+            s0 = time.perf_counter()
+            resumed.step_fn(resumed.state, images, targets)
+            _synchronize(dev)
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+        steady = step_ms[1:]
+        _synchronize(dev)
+        s0 = time.perf_counter()
+        for images, targets in batches:
+            resumed.step_fn(resumed.state, images, targets)
+        _synchronize(dev)
+        device_ips = len(batches) * TRAIN_BATCH / (time.perf_counter() - s0)
+        log(f"  step alone (device-resident batches, synchronised): first {step_ms[0]:.2f} ms, "
+            f"then median {float(np.median(steady)):.2f} ms ({min(steady):.2f}-"
+            f"{max(steady):.2f}) over {len(steady)}; device-fed {device_ips:.2f} images/s "
+            f"({len(batches)} steps back to back)")
+        # one scene's sample alone (FLAME decode, one launch, the download),
+        # with no step in flight, against what the loader threads got
+        fresh = SyntheticHeadsDataset(flame_model=resumed.flame, image_size=TRAIN_SIZE,
+                                      length=TRAIN_BATCH, seed=7, render=True, device=dev)
+        fresh[0]
+        _synchronize(dev)
+        s0 = time.perf_counter()
+        for i in range(1, TRAIN_BATCH):
+            fresh[i]
+        render_ms = (time.perf_counter() - s0) * 1e3 / (TRAIN_BATCH - 1)
+        log(f"  one rendered sample alone, one thread, no step in flight: {render_ms:.2f} ms")
+        busy = None
+        if torch.device(dev).type == "cuda":
+            try:
+                images, targets = batches[0]
+                busy = profile_window(f"one train step, batch {TRAIN_BATCH} at {TRAIN_SIZE} px",
+                                      lambda: resumed.step_fn(resumed.state, images, targets))
+            except RuntimeError as exc:  # the profiler is a reading, not a check
+                log(f"  training profiler: not measured ({exc})")
+        log(f"  training device busy share: "
+            f"{'not measured' if busy is None else f'{100 * busy:.1f}%'}")
+        return {"launches": launches, "restored": [matched, total],
+                "step_ms_first": step_ms[0], "step_ms_median": float(np.median(steady)),
+                "step_ms_spread": [min(steady), max(steady)],
+                "loader_images_per_s": loader_ips, "device_fed_images_per_s": device_ips,
+                "render_ms_alone": render_ms,
+                "peak_memory_bytes": peak, "device_busy_share": busy,
+                "loss_first": first, "loss_last": last,
+                "validation": [metrics_first, metrics_second]}
+
+
+def phase_train_card_vs_cpu(dev) -> None:
+    """One float32 train-mode forward + loss + backward of the M checkpoint
+    at CHECK_SIZE px, batch CHECK_BATCH, on the card and on the CPU (TF32
+    off): loss components to relative LOSS_RTOL, every parameter's gradient
+    to relative L2 GRAD_REL_L2."""
+    from head_detector_tpu_torch.config import CONFIG_DIR, load_config, run_config_from_dict
+    from head_detector_tpu_torch.device import exact_float32
+    from head_detector_tpu_torch.flame import FlameModel
+    from head_detector_tpu_torch.models import build_model
+    from head_detector_tpu_torch.train.dataset import SyntheticHeadsDataset, collate_samples
+    from head_detector_tpu_torch.train.loss import Targets
+    from head_detector_tpu_torch.train.trainer import images_to_device, make_loss_fn
+    from head_detector_tpu_torch.weights import load_variables, train_state_dict_from_flax
+
+    loss_cfg = run_config_from_dict(
+        load_config(os.path.join(CONFIG_DIR, f"{MODEL}.yaml"))).loss
+    ds = SyntheticHeadsDataset(image_size=CHECK_SIZE, length=CHECK_BATCH, seed=3, render=True,
+                               device=dev)
+    images, targets = collate_samples([ds[i] for i in range(CHECK_BATCH)], 30)
+    state, _ = train_state_dict_from_flax(load_variables(CHECKPOINT))
+    got = {}
+    for where in (torch.device(dev), torch.device("cpu")):
+        t0 = time.perf_counter()
+        net = build_model(MODEL, deploy=False).to(where)
+        net.load_state_dict(state, strict=True)
+        loss_fn = make_loss_fn(net, FlameModel.from_assets(device=where), loss_cfg)
+        with exact_float32():
+            total, comps = loss_fn(images_to_device(images, where), Targets(*targets).to(where))
+            total.backward()
+        got[where.type] = (_components(comps),
+                           {n: p.grad.detach().cpu() for n, p in net.named_parameters()})
+        log(f"  float32 step on {where.type}: {(time.perf_counter() - t0):.2f} s")
+    (card, card_grads), (cpu, cpu_grads) = got[torch.device(dev).type], got["cpu"]
+    worst_loss = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu
+                     if k.startswith("loss"))
+    # a bias that only shifts a channel before a train-mode BatchNorm (the
+    # QARepVGG branches' before post_bn, the upsample's before a 1x1 conv and
+    # its BatchNorm) has an exact gradient of 0: both devices compute
+    # rounding there, held to 1e-5 of the largest gradient instead
+    flat = lambda n: n.endswith(SHIFT_BEFORE_BN)  # noqa: E731
+    largest = max(float(g.abs().max()) for g in cpu_grads.values())
+    shift = max(max(float(card_grads[n].abs().max()), float(g.abs().max()))
+                for n, g in cpu_grads.items() if flat(n))
+    rel = {n: float(torch.linalg.norm(card_grads[n] - g) / torch.linalg.norm(g))
+           for n, g in cpu_grads.items() if not flat(n)}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  card vs CPU, float32, {CHECK_SIZE} px, batch {CHECK_BATCH}: loss {cpu['loss']:.6f}, "
+        f"num_pos {cpu['num_pos']:.0f}; max loss-component relative difference "
+        f"{worst_loss:.3e}; gradient relative L2, worst of {len(rel)} parameters: {worst}; "
+        f"the {len(cpu_grads) - len(rel)} channel-shift biases (exact gradient 0): largest "
+        f"|g| {shift:.3e} against {largest:.3e} anywhere")
+    if card["num_pos"] != cpu["num_pos"] or worst_loss > LOSS_RTOL or \
+            worst[0][1] > GRAD_REL_L2 or shift > 1e-5 * largest:
+        raise AssertionError("training: card and CPU disagree at float32")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU",
@@ -823,6 +1074,16 @@ def main() -> int:
     log("phase 6: streaming")
     streaming = phase_streaming(flame_model)
     log("  " + json.dumps({"streaming": streaming}))
+
+    log("phase 7: training")
+    training = phase_training(dev)
+    phase_train_card_vs_cpu(dev)
+    log("  " + json.dumps({"training": training}))
+    for entry in entries:
+        serving = entry["launches"]
+        entry["launches_by_path"] = {"serving": serving,
+                                     "training": training["launches"].get(entry["name"], 0)}
+        entry["launches"] = sum(entry["launches_by_path"].values())
 
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -19,8 +19,12 @@ detections, or of ``post_nms_max`` (every NMS survivor) without a compact
 wire, and then returns float32 vertices as the reference does.  Float32
 operations run with TF32 off (see ``device.py``).  Weights load from a flax
 msgpack checkpoint (``checkpoint=`` or ``HDT_CHECKPOINT``) in the training
-or the deploy layout; random initialisation and ``deploy=False`` need the
-training-layout model, which the port does not have yet.
+or the deploy layout; without one the training-layout model is initialised
+at random (``models.init_model``, seed 0, BatchNorm calibrated at
+``image_size``).  ``deploy=False`` keeps the training layout (QARepVGG
+branches, the dense FLAME towers, whose rows at the kept anchors are
+gathered after NMS); by default the blocks are fused and the towers run
+sparsely at the kept anchors.
 """
 
 from __future__ import annotations
@@ -37,13 +41,19 @@ from head_detector_tpu_torch.detection_result import PredictionResult
 from head_detector_tpu_torch.device import exact_float32, resolve_device
 from head_detector_tpu_torch.flame import FlameModel, fused_project_vertices
 from head_detector_tpu_torch.head_info import NUM_FLAME_PARAMS, Bbox, FlameParams, HeadMetadata, RPY
-from head_detector_tpu_torch.models import build_model, get_arch, globalize_flame
+from head_detector_tpu_torch.models import build_model, get_arch, globalize_flame, init_model
 from head_detector_tpu_torch.models.heads import RawOutputs
 from head_detector_tpu_torch.ops.letterbox import letterbox_batch, letterbox_spec
 from head_detector_tpu_torch.ops.nms import batched_nms, compact_detections
 from head_detector_tpu_torch.ops.rotation import rotation_mats_to_rpy
 from head_detector_tpu_torch.ops.sparse_towers import sparse_flame_rows
-from head_detector_tpu_torch.weights import count_leaves, load_variables, state_dict_from_flax
+from head_detector_tpu_torch.weights import (
+    count_leaves,
+    flax_from_state_dict,
+    load_variables,
+    state_dict_from_flax,
+    train_state_dict_from_flax,
+)
 
 # meta row: batch index, box (4), score, params (413), rpy (3), valid
 _BOX = slice(1, 5)
@@ -51,6 +61,23 @@ _SCORE = 5
 _PARAMS = slice(6, 6 + NUM_FLAME_PARAMS)
 _RPY = slice(6 + NUM_FLAME_PARAMS, 9 + NUM_FLAME_PARAMS)
 _WIRE_DTYPES = {"f32": torch.float32, "f16": torch.float16}
+
+
+def is_deploy_layout(variables: dict) -> bool:
+    """True when a flax tree holds fused (``rbr_reparam``) QARepVGG blocks."""
+    def walk(tree) -> bool:
+        return isinstance(tree, dict) and (
+            "rbr_reparam" in tree or any(walk(v) for v in tree.values()))
+
+    return walk(variables.get("params", {}))
+
+
+def random_variables(arch, image_size: int, device) -> dict:
+    """A randomly initialised training-layout model (``init_model``, seed 0,
+    BatchNorm calibrated at ``image_size`` on ``device``) as a flax tree."""
+    net = build_model(arch, deploy=False).to(device)
+    init_model(net, torch.Generator().manual_seed(0), (image_size, image_size))
+    return flax_from_state_dict(net.state_dict())
 
 
 class HeadDetector:
@@ -82,6 +109,7 @@ class HeadDetector:
         param_fusion: bool = False,
         fusion_neighbors: int = 4,
         fusion_iou: float = 0.7,
+        deploy: bool = True,
     ):
         if wire_verts_dtype not in _WIRE_DTYPES:
             raise ValueError(f"wire_verts_dtype must be f32|f16, got {wire_verts_dtype!r}")
@@ -89,9 +117,6 @@ class HeadDetector:
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         self.device = resolve_device(device)
         checkpoint = checkpoint or os.environ.get("HDT_CHECKPOINT")
-        if not checkpoint:
-            raise ValueError("HeadDetector needs a flax msgpack checkpoint "
-                             "(checkpoint= or HDT_CHECKPOINT)")
         self._image_size = image_size
         self._pre_nms_max = pre_nms_max
         self._post_nms_max = post_nms_max
@@ -102,19 +127,34 @@ class HeadDetector:
         self._fusion_iou = float(fusion_iou)
         self._arch = get_arch(model)
 
-        variables = load_variables(checkpoint)
-        state, used = state_dict_from_flax(variables, self._arch)
+        variables = (load_variables(checkpoint) if checkpoint
+                     else random_variables(self._arch, image_size, self.device))
+        self._sparse = deploy or is_deploy_layout(variables)
+        convert = (lambda v: state_dict_from_flax(v, self._arch)) if self._sparse \
+            else train_state_dict_from_flax
+        state, used = convert(variables)
         total = count_leaves(variables)
         if used != total:
             raise ValueError(f"{checkpoint}: restored {used}/{total} leaves")
         self.restored_leaves = (used, total)
-        net = build_model(self._arch, defer_globalization=True, skip_flame=True, dtype=dtype)
+        net = build_model(self._arch, defer_globalization=True, skip_flame=self._sparse,
+                          dtype=dtype, deploy=self._sparse)
         net.load_state_dict(state, strict=True)
         self._model = net.to(self.device).eval()
         self._flame = FlameModel.from_assets(device=self.device)
 
     # ------------------------------------------------------------------ #
-    def _fused_rows(self, feats, raw: RawOutputs, nb_idx: torch.Tensor,
+    def _rows(self, feats, dense: torch.Tensor, anchor_idx: torch.Tensor,
+              batch_idx: torch.Tensor) -> torch.Tensor:
+        """Anchor-local FLAME rows [K, 413] (float32) at ``anchor_idx`` of
+        images ``batch_idx``: the sparse towers (fused blocks), or a gather
+        from the dense rows (training layout)."""
+        if self._sparse:
+            return sparse_flame_rows(self._model.heads, self._arch, feats,
+                                     anchor_idx[None], batch_idx=batch_idx[None])[0]
+        return dense[batch_idx.long(), anchor_idx.long()].float()
+
+    def _fused_rows(self, feats, dense: torch.Tensor, raw: RawOutputs, nb_idx: torch.Tensor,
                     nb_w: torch.Tensor, batch_idx: torch.Tensor) -> torch.Tensor:
         """Globalised, score-weighted FLAME params [K, 413] over each slot's
         neighbours ``nb_idx`` [K, n] with weights ``nb_w`` [K, n].  Every
@@ -123,10 +163,7 @@ class HeadDetector:
         affine on the translation and scale slots)."""
         k, n = nb_idx.shape
         flat = nb_idx.reshape(k * n)
-        rows = sparse_flame_rows(
-            self._model.heads, self._arch, feats, flat[None],
-            batch_idx=batch_idx.repeat_interleave(n)[None],
-        )[0]
+        rows = self._rows(feats, dense, flat, batch_idx.repeat_interleave(n))
         glob = globalize_flame(rows, flat, raw.anchor_points, raw.stride_tensor)
         wsum = torch.clamp(nb_w.sum(dim=1, keepdim=True), min=1e-12)
         return (nb_w[..., None] * glob.reshape(k, n, -1)).sum(dim=1) / wsum
@@ -156,13 +193,11 @@ class HeadDetector:
             cres = compact_detections(res, m)
             if nb is not None:
                 at = (cres.batch_idx, cres.slot_idx)
-                params = self._fused_rows(feats, raw, nb.anchor_idx[at], nb.weights[at],
-                                          cres.batch_idx)
+                params = self._fused_rows(feats, decoded.flame_params, raw, nb.anchor_idx[at],
+                                          nb.weights[at], cres.batch_idx)
             else:
-                rows = sparse_flame_rows(
-                    self._model.heads, self._arch, feats,
-                    cres.anchor_idx[None], batch_idx=cres.batch_idx[None],
-                )[0]
+                rows = self._rows(feats, decoded.flame_params, cres.anchor_idx,
+                                  cres.batch_idx)
                 params = globalize_flame(
                     rows, cres.anchor_idx, raw.anchor_points, raw.stride_tensor
                 )

@@ -16,6 +16,7 @@ or calling the port changes nothing for the rest of the process.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
@@ -31,15 +32,33 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+_FLAGS_LOCK = threading.Lock()
+_flags_depth = 0
+_flags_saved = (False, True)
+
+
 @contextlib.contextmanager
 def exact_float32():
-    """Disable TF32 for matmuls and cuDNN convolutions inside the block."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    """Disable TF32 for matmuls and cuDNN convolutions inside the block.
+
+    The flags are process-wide, and loader threads decode FLAME while the
+    main thread trains, so entries are counted under a lock: the first
+    entrant saves the flags, the last one out restores them (a per-entry
+    save and restore would, interleaved across threads, leave the flags off
+    or restore them under another thread's block)."""
+    global _flags_depth, _flags_saved
+    with _FLAGS_LOCK:
+        if _flags_depth == 0:
+            _flags_saved = (torch.backends.cuda.matmul.allow_tf32,
+                            torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _flags_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
+        with _FLAGS_LOCK:
+            _flags_depth -= 1
+            if _flags_depth == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _flags_saved

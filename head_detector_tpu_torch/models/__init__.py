@@ -1,4 +1,4 @@
-"""Model zoo: YoloHeads N/S/M/L in torch (deploy layout)."""
+"""Model zoo: YoloHeads N/S/M/L in torch (deploy and training layouts)."""
 
 from head_detector_tpu_torch.models.heads import (
     DecodedPredictions,
@@ -7,7 +7,12 @@ from head_detector_tpu_torch.models.heads import (
     make_anchors,
 )
 from head_detector_tpu_torch.models.presets import PRESETS, ArchCfg, get_arch
-from head_detector_tpu_torch.models.yolo_heads import YoloHeads, build_model
+from head_detector_tpu_torch.models.yolo_heads import (
+    YoloHeads,
+    build_model,
+    calibrate_batch_stats,
+    init_model,
+)
 
 __all__ = [
     "ArchCfg",
@@ -15,6 +20,8 @@ __all__ = [
     "get_arch",
     "YoloHeads",
     "build_model",
+    "calibrate_batch_stats",
+    "init_model",
     "DecodedPredictions",
     "RawOutputs",
     "globalize_flame",

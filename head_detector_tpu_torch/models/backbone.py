@@ -11,14 +11,14 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from head_detector_tpu_torch.models.blocks import SPP, YoloNASStage, YoloNASStem
+from head_detector_tpu_torch.models.blocks import SPP, BlockCfg, YoloNASStage, YoloNASStem
 from head_detector_tpu_torch.models.presets import ArchCfg
 
 
 class NStageBackbone(nn.Module):
-    def __init__(self, arch: ArchCfg, in_channels: int = 3):
+    def __init__(self, arch: ArchCfg, in_channels: int = 3, cfg: BlockCfg = BlockCfg()):
         super().__init__()
-        self.stem = YoloNASStem(in_channels, arch.stem_channels)
+        self.stem = YoloNASStem(in_channels, arch.stem_channels, cfg=cfg)
         ch = arch.stem_channels
         for i, st in enumerate(arch.stages):
             self.add_module(
@@ -26,11 +26,11 @@ class NStageBackbone(nn.Module):
                 YoloNASStage(ch, st.out_channels, st.num_blocks,
                              hidden_channels=st.hidden_channels,
                              concat_intermediates=st.concat_intermediates,
-                             eps=arch.bn_eps),
+                             cfg=cfg),
             )
             ch = st.out_channels
         self.num_stages = len(arch.stages)
-        self.context_module = SPP(ch, arch.spp_channels, k=arch.spp_k, eps=arch.bn_eps)
+        self.context_module = SPP(ch, arch.spp_channels, k=arch.spp_k, cfg=cfg)
         self.out_channels = tuple(st.out_channels for st in arch.stages[:3]) + (
             arch.spp_channels,
         )

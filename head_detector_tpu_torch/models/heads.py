@@ -18,7 +18,13 @@ from torch import nn
 from torch.nn import functional as F
 
 from head_detector_tpu_torch.head_info import FLAME_CONSTS
-from head_detector_tpu_torch.models.blocks import ConvBNAct, QARepVGGBlock, width_multiplier
+from head_detector_tpu_torch.models.blocks import (
+    BlockCfg,
+    Conv2d,
+    ConvBNAct,
+    QARepVGGBlock,
+    width_multiplier,
+)
 from head_detector_tpu_torch.models.presets import ArchCfg, HeadCfg
 
 _TRANSLATION_START = 409
@@ -68,17 +74,18 @@ def flame_vector(outputs: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 class FlameRegressionTower(nn.Module):
-    """N deploy QARepVGG blocks + 1x1 conv."""
+    """N QARepVGG blocks (no residual, learnable alpha) + 1x1 conv."""
 
     def __init__(self, in_channels: int, inter_channels: int, out_channels: int,
-                 num_blocks: int):
+                 num_blocks: int, cfg: BlockCfg = BlockCfg()):
         super().__init__()
         self.num_blocks = num_blocks
         ch = in_channels
         for i in range(num_blocks):
-            self.add_module(f"block{i}", QARepVGGBlock(ch, inter_channels))
+            self.add_module(f"block{i}", QARepVGGBlock(
+                ch, inter_channels, use_residual_connection=False, use_alpha=True, cfg=cfg))
             ch = inter_channels
-        self.pred = nn.Conv2d(ch, out_channels, 1, bias=True)
+        self.pred = Conv2d(ch, out_channels, 1, bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_blocks):
@@ -94,7 +101,7 @@ class YoloHeadsDFLHead(nn.Module):
     map, and ``ops/sparse_towers.py`` runs them at the kept anchors only."""
 
     def __init__(self, in_channels: int, head: HeadCfg, skip_flame: bool = False,
-                 eps: float = 1e-6):
+                 cfg: BlockCfg = BlockCfg()):
         super().__init__()
         if head.shared_stem or head.first_conv_group_size:
             raise NotImplementedError(
@@ -104,12 +111,12 @@ class YoloHeadsDFLHead(nn.Module):
         self.num_blocks = head.flame_regression_blocks
         bbox_ch = width_multiplier(head.bbox_inter_channels, head.width_mult, 8)
         flame_ch = width_multiplier(head.flame_inter_channels, head.width_mult, 8)
-        self.pose_stem = ConvBNAct(in_channels, flame_ch, eps=eps)
-        self.bbox_stem = ConvBNAct(in_channels, bbox_ch, eps=eps)
-        self.cls_conv = ConvBNAct(bbox_ch, bbox_ch, 3, eps=eps)
-        self.reg_conv = ConvBNAct(bbox_ch, bbox_ch, 3, eps=eps)
-        self.cls_pred = nn.Conv2d(bbox_ch, 1, 1, bias=True)
-        self.reg_pred = nn.Conv2d(bbox_ch, 4 * (head.reg_max + 1), 1, bias=True)
+        self.pose_stem = ConvBNAct(in_channels, flame_ch, cfg=cfg)
+        self.bbox_stem = ConvBNAct(in_channels, bbox_ch, cfg=cfg)
+        self.cls_conv = ConvBNAct(bbox_ch, bbox_ch, 3, cfg=cfg)
+        self.reg_conv = ConvBNAct(bbox_ch, bbox_ch, 3, cfg=cfg)
+        self.cls_pred = Conv2d(bbox_ch, 1, 1, bias=True)
+        self.reg_pred = Conv2d(bbox_ch, 4 * (head.reg_max + 1), 1, bias=True)
         transf = head.flame_transformation_inter_channels
         specs = (
             (head.flame_shape_inter_channels, head.flame_shape_out_channels),
@@ -121,7 +128,7 @@ class YoloHeadsDFLHead(nn.Module):
         )
         for name, (inter, out) in zip(TOWERS, specs):
             self.add_module(
-                name, FlameRegressionTower(flame_ch, inter, out, self.num_blocks)
+                name, FlameRegressionTower(flame_ch, inter, out, self.num_blocks, cfg=cfg)
             )
 
     def forward(self, x: torch.Tensor):
@@ -188,14 +195,15 @@ class YoloHeadsNDFLHeads(nn.Module):
     :func:`globalize_flame`."""
 
     def __init__(self, arch: ArchCfg, in_channels: Sequence[int],
-                 defer_globalization: bool = False, skip_flame: bool = False):
+                 defer_globalization: bool = False, skip_flame: bool = False,
+                 cfg: BlockCfg = BlockCfg()):
         super().__init__()
         self.arch = arch
         self.defer_globalization = defer_globalization
         for i, (ch, hcfg) in enumerate(zip(in_channels, arch.heads)):
             self.add_module(
                 f"head{i + 1}",
-                YoloHeadsDFLHead(ch, hcfg, skip_flame=skip_flame, eps=arch.bn_eps),
+                YoloHeadsDFLHead(ch, hcfg, skip_flame=skip_flame, cfg=cfg),
             )
 
     def forward(self, feats: Sequence[torch.Tensor]):

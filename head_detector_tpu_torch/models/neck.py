@@ -12,29 +12,28 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from head_detector_tpu_torch.models.blocks import YoloNASDownStage, YoloNASUpStage
+from head_detector_tpu_torch.models.blocks import BlockCfg, YoloNASDownStage, YoloNASUpStage
 from head_detector_tpu_torch.models.presets import ArchCfg
 
 
 class YoloNASPANNeckWithC2(nn.Module):
-    def __init__(self, arch: ArchCfg, in_channels: Sequence[int]):
+    def __init__(self, arch: ArchCfg, in_channels: Sequence[int], cfg: BlockCfg = BlockCfg()):
         super().__init__()
         c2, c3, c4, c5 = in_channels
         up1, up2 = arch.neck_up
         down1, down2 = arch.neck_down
-        eps = arch.bn_eps
 
-        def up(cfg, chans):
-            return YoloNASUpStage(chans, cfg.out_channels, cfg.num_blocks,
-                                  hidden_channels=cfg.hidden_channels,
-                                  width_mult=cfg.width_mult, depth_mult=cfg.depth_mult,
-                                  reduce_channels=cfg.reduce_channels, eps=eps)
+        def up(c, chans):
+            return YoloNASUpStage(chans, c.out_channels, c.num_blocks,
+                                  hidden_channels=c.hidden_channels,
+                                  width_mult=c.width_mult, depth_mult=c.depth_mult,
+                                  reduce_channels=c.reduce_channels, cfg=cfg)
 
-        def down(cfg, chans):
-            return YoloNASDownStage(chans, cfg.out_channels, cfg.num_blocks,
-                                    hidden_channels=cfg.hidden_channels,
-                                    width_mult=cfg.width_mult,
-                                    depth_mult=cfg.depth_mult, eps=eps)
+        def down(c, chans):
+            return YoloNASDownStage(chans, c.out_channels, c.num_blocks,
+                                    hidden_channels=c.hidden_channels,
+                                    width_mult=c.width_mult,
+                                    depth_mult=c.depth_mult, cfg=cfg)
 
         self.neck1 = up(up1, (c5, c4, c3))
         n1 = self.neck1.out_channels

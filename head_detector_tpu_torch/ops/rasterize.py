@@ -38,6 +38,7 @@ index range of a triangle table is read back once per tensor.
 from __future__ import annotations
 
 import ctypes
+import threading
 import weakref
 
 import numpy as np
@@ -207,6 +208,10 @@ def _check_cuda_inputs(vertices, triangles, colors, height, width):
             )
 
 
+# launch counts are bumped from loader threads too (the training dataset
+# renders in a thread pool), and ``+=`` on an attribute is not atomic
+_COUNT_LOCK = threading.Lock()
+
 # id(table) -> (weak reference, version counter, lowest, highest index): the
 # range of a table that is alive and unchanged since it was read
 _CHECKED_TABLES: dict = {}
@@ -264,7 +269,8 @@ def launch_rasterize_zbuffer(vertices, triangles, colors, scratch, canvas, hit,
     if err != 0:
         raise RuntimeError(f"rasterize kernel launch failed: cudaError {err}")
     if n:
-        rasterize_zbuffer_cuda.launches += 1
+        with _COUNT_LOCK:
+            rasterize_zbuffer_cuda.launches += 1
 
 
 def rasterize_zbuffer_cuda(
@@ -303,7 +309,8 @@ def launch_pncc_render(vertices, triangles, colors, scratch, canvas) -> None:
     )
     if err != 0:
         raise RuntimeError(f"PNCC render kernel launch failed: cudaError {err}")
-    pncc_render_cuda.launches += 1
+    with _COUNT_LOCK:
+        pncc_render_cuda.launches += 1
 
 
 def pncc_render_cuda(

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from head_detector_tpu_torch.assets_io import get_indices
+from head_detector_tpu_torch.detector import random_variables
 from head_detector_tpu_torch.device import exact_float32, resolve_device
 from head_detector_tpu_torch.flame import FlameModel, fused_project_vertices
 from head_detector_tpu_torch.models import ArchCfg, build_model, get_arch, globalize_flame
@@ -109,7 +110,8 @@ class StreamingDetector:
     ):
         """``variables`` is a flax ``{params, batch_stats}`` tree of numpy
         arrays (training or deploy layout); ``checkpoint`` a flax msgpack
-        file.  One of them is needed: random initialisation is not ported."""
+        file; with neither, the training-layout model is initialised at
+        random (seed 0, BatchNorm calibrated at ``image_size``) and fused."""
         if image_size % 32:
             raise ValueError("image_size must be a multiple of 32")
         self.device = resolve_device(device)
@@ -125,12 +127,11 @@ class StreamingDetector:
         self.post_nms_max = post_nms_max
         self.verts_dtype = verts_dtype
 
+        self.arch = model_name if isinstance(model_name, ArchCfg) else get_arch(model_name)
         if variables is None and checkpoint:
             variables = load_variables(checkpoint)
         if variables is None:
-            raise ValueError("StreamingDetector needs variables= or checkpoint= "
-                             "(random initialisation is not ported)")
-        self.arch = model_name if isinstance(model_name, ArchCfg) else get_arch(model_name)
+            variables = random_variables(self.arch, image_size, self.device)
         state, used = state_dict_from_flax(variables, self.arch)
         if used != count_leaves(variables):
             raise ValueError(f"restored {used}/{count_leaves(variables)} leaves")

@@ -1,1 +1,2 @@
-"""Training-side helpers of the port (this slice: synthetic scene rendering)."""
+"""Training runtime of the port: assigner, losses, AdamW + EMA train step,
+synthetic rendered data, checkpoints and the epoch loop (``runner``)."""

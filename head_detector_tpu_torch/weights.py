@@ -20,11 +20,15 @@ path) and ``head_detector_tpu/export.py:_fuse_one`` / ``fuse_qarepvgg``.
   posed vertices, inside the 1e-3 bar
   (``tests/test_torch_detector.py::test_shipped_m_checkpoint_matches_jax``),
   so the port keeps the more exact fold.
+* :func:`train_state_dict_from_flax` carries a training-layout tree into the
+  port's training-layout model unfused (the same leaf-by-leaf layout moves,
+  every leaf float32), and :func:`flax_from_state_dict` is its inverse: a
+  port state dict as a flax ``{params, batch_stats}`` tree of numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import msgpack
 import numpy as np
@@ -120,25 +124,24 @@ def _conv_weight(kernel: np.ndarray, transposed: bool) -> np.ndarray:
     return np.transpose(k, (3, 2, 0, 1))  # HWIO -> OIHW
 
 
-def state_dict_from_flax(
-    variables: Dict[str, Any], arch: ArchCfg
-) -> Tuple[Dict[str, torch.Tensor], int]:
-    """Flax ``{params, batch_stats}`` (numpy leaves) -> (torch state dict,
-    number of flax leaves it consumed).  Every leaf of the tree is consumed
-    exactly once, so a complete conversion returns ``count_leaves(variables)``."""
+def _from_flax(variables: Dict[str, Any],
+               fuse_eps: Optional[float]) -> Tuple[Dict[str, torch.Tensor], int]:
+    """The walk behind both converters: every QARepVGG training scope is
+    fused into ``rbr_reparam`` at BatchNorm epsilon ``fuse_eps``, or carried
+    unfused (``alpha`` a scalar) when it is None."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
     used = 0
 
     def put(key, value):
-        out[key] = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
 
     def walk(p, s, path):
         nonlocal used
         prefix = ".".join(path)
-        if _is_qarepvgg_scope(p):
-            w, b = fuse_qarepvgg_block(p, s, arch.bn_eps)
+        if fuse_eps is not None and _is_qarepvgg_scope(p):
+            w, b = fuse_qarepvgg_block(p, s, fuse_eps)
             put(f"{prefix}.rbr_reparam.weight", _conv_weight(w, False))
             put(f"{prefix}.rbr_reparam.bias", b)
             used += count_leaves(p) + count_leaves(s)
@@ -151,15 +154,69 @@ def state_dict_from_flax(
             put(f"{prefix}.running_var", s["var"])
             out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
             used += 4
-        elif leaves:  # Conv / ConvTranspose
-            put(f"{prefix}.weight", _conv_weight(leaves["kernel"], path[-1] == "upsample"))
-            used += 1
-            if "bias" in leaves:
-                put(f"{prefix}.bias", leaves["bias"])
-                used += 1
+        else:  # Conv / ConvTranspose, and a QARepVGG block's alpha
+            if "kernel" in leaves:
+                put(f"{prefix}.weight",
+                    _conv_weight(leaves["kernel"], path[-1] == "upsample"))
+            for name in ("bias", "alpha"):
+                if name in leaves:
+                    put(f"{prefix}.{name}", leaves[name])
+            used += len(leaves)
         for key, sub in p.items():
             if isinstance(sub, dict):
                 walk(sub, s.get(key, {}) if isinstance(s, dict) else {}, path + [key])
 
     walk(params, stats, [])
     return out, used
+
+
+def state_dict_from_flax(
+    variables: Dict[str, Any], arch: ArchCfg
+) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Flax ``{params, batch_stats}`` (numpy leaves) -> (deploy-layout torch
+    state dict, number of flax leaves it consumed).  Every leaf of the tree
+    is consumed exactly once, so a complete conversion returns
+    ``count_leaves(variables)``."""
+    return _from_flax(variables, arch.bn_eps)
+
+
+def train_state_dict_from_flax(
+    variables: Dict[str, Any],
+) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Flax ``{params, batch_stats}`` in the training layout (numpy leaves)
+    -> (the port's unfused training-layout state dict, number of flax leaves
+    it consumed), by the same leaf moves as :func:`state_dict_from_flax`."""
+    return _from_flax(variables, None)
+
+
+def flax_from_state_dict(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A port state dict (either layout) -> flax ``{params, batch_stats}``
+    of float32 numpy arrays, the inverse of :func:`train_state_dict_from_flax`
+    (and of :func:`state_dict_from_flax` on a deploy-layout tree)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    bn_scopes = {k[: -len(".running_mean")] for k in state if k.endswith(".running_mean")}
+
+    def node(tree, path):
+        for part in path:
+            tree = tree.setdefault(part, {})
+        return tree
+
+    for key, value in state.items():
+        scope, _, leaf = key.rpartition(".")
+        path = scope.split(".")
+        v = value.detach().to("cpu", torch.float32).numpy()
+        if scope in bn_scopes:
+            if leaf in ("weight", "bias"):
+                node(params, path)["scale" if leaf == "weight" else "bias"] = v
+            elif leaf in ("running_mean", "running_var"):
+                node(stats, path)["mean" if leaf == "running_mean" else "var"] = v
+        elif leaf == "weight":
+            if path[-1] == "upsample":  # torch [in, out, kh, kw] -> flax, unflipped
+                k = np.transpose(v, (2, 3, 0, 1))[::-1, ::-1]
+            else:  # OIHW -> HWIO
+                k = np.transpose(v, (2, 3, 1, 0))
+            node(params, path)["kernel"] = np.ascontiguousarray(k)
+        elif leaf in ("bias", "alpha"):
+            node(params, path)[leaf] = v
+    return {"params": params, "batch_stats": stats}
