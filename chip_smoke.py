@@ -15,7 +15,8 @@ Phases (any failure exits non-zero before the final line):
    casts to 0, a head larger than the canvas, a 130 x 100 canvas), with the
    wrapper's time, the launches' time alone, the plain version's time and
    the least time the card could take (bound), read on the scene with the
-   most heads;
+   most heads; and at the DAD stand-in renderer's input (a sample of three
+   heads at 512 px as one mesh), bit-equal, with its times;
 3. the main path: 8 scenes from ``render_scene``, ``HeadDetector``
    (yolo_heads_m, the shipped checkpoint, 640 px) ``predict_batch`` on them,
    then ``get_pncc`` on every result, with every kernel's launch count
@@ -75,8 +76,25 @@ Phases (any failure exits non-zero before the final line):
    on one sample through each wire (every loss component within 1e-5
    relative, num_pos equal), and a short epoch of the
    dense wire through the entry point;
-9. one ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. export and evaluation (yolo_heads_m, the shipped checkpoint, 512 px, its
+   own size): the shipped checkpoint through ``load_variables``,
+   ``train_state_dict_from_flax``, ``flax_from_state_dict`` and
+   ``save_variables`` in float16 gives back the file byte for byte, and a
+   ``HeadDetector`` on it gives phase 3's boxes and scores bit for bit;
+   ``tools/eval_checkpoint`` scores phase 8's flagship step (raw and EMA, on
+   its rendered validation split) and exports it in float32 and float16,
+   each export served by ``HeadDetector`` with every leaf restored; with the
+   launch counts zeroed, 64 DAD stand-in samples rendered on the card
+   (``tools/render_dad_testset``, up to 3 heads, seed 99; samples/s, one
+   launch a sample) and an FDDB stand-in made from phase 8's validation
+   split; ``tools/run_protocols`` (DAD, then FDDB) on the card with host ms
+   per sample; the card against the CPU on the first 4 DAD samples and 4
+   FDDB images (the same heads selected; ``nme_2d`` and chamfer within 1e-3
+   relative, ``rot_error`` 1e-4, angle 1e-2 degrees, ``z_n`` 1e-2, FDDB AP
+   1e-3; float32 with TF32 off);
+10. one ``{"kernels": [...]}`` line (``launches_by_path`` by serving,
+   training, flagship and evaluation), the card's name and power limit,
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is
 False or the port's package is missing.
@@ -132,6 +150,12 @@ WIRE_RTOL = 1e-5  # per loss component, float32 with TF32 off
 STREAM_SIZE = 1024
 STREAM_BATCH = 32
 STREAM_SCENES = 64
+
+EVAL_SIZE = 512  # the shipped checkpoint's own size (checkpoints/flagship_ema.msgpack.json)
+DAD_SAMPLES = 64
+DAD_SEED = 99
+DAD_MAX_HEADS = 3
+CHECK_SAMPLES = 4  # DAD samples and FDDB images of the card-against-CPU check
 
 HIT_AGREEMENT = 0.999  # the Pallas kernel's bar, tests/test_rasterize_pallas.py
 COLOR_TOL = 1e-4
@@ -1177,10 +1201,11 @@ def wire_steps(dev, data: str, loss_cfg) -> dict:
     return out
 
 
-def phase_flagship(dev, flame_model) -> dict:
-    """The flagship configuration: render its dataset with the port's tool,
-    sweep it, train on it through the entry point (params wire, then a short
-    run of the dense wire), and read the step's layers."""
+def phase_flagship(dev, flame_model, root: str) -> dict:
+    """The flagship configuration: render its dataset with the port's tool
+    under ``root``, sweep it, train on it through the entry point (params
+    wire, then a short run of the dense wire), and read the step's layers.
+    The dataset and the step directories stay under ``root`` for phase 9."""
     from head_detector_tpu_torch import hostlock
     from head_detector_tpu_torch.flame import FlameModel
     from head_detector_tpu_torch.ops import rasterize as r
@@ -1199,198 +1224,198 @@ def phase_flagship(dev, flame_model) -> dict:
     import cv2
 
     is_cuda = torch.device(dev).type == "cuda"
-    with tempfile.TemporaryDirectory() as root:
-        data = os.path.join(root, "data")
-        r.rasterize_zbuffer_cuda.launches = 0
-        r.pncc_render_cuda.launches = 0
-        _synchronize(dev)
-        t0 = time.perf_counter()
-        rendered = [render_split(data, "train", FLAGSHIP_TRAIN, FLAGSHIP_SIZE, device=dev,
-                                 flame_model=flame_model, log_every=0),
-                    render_split(data, "val", FLAGSHIP_VAL, FLAGSHIP_SIZE, seed=1, device=dev,
-                                 flame_model=flame_model, log_every=0)]
-        _synchronize(dev)
-        render_s = time.perf_counter() - t0
-        render_launches = r.rasterize_zbuffer_cuda.launches
-        want_launches = renderer_launches("train", FLAGSHIP_TRAIN) + renderer_launches(
-            "val", FLAGSHIP_VAL, seed=1)
-        scenes = FLAGSHIP_TRAIN + FLAGSHIP_VAL
-        kept = sum(x["heads"] for x in rendered)
-        log(f"  rendered {scenes} scenes at {FLAGSHIP_SIZE} px in {render_s:.2f} s: "
-            f"{scenes / render_s:.2f} scenes/s, {kept} heads kept; rasterize_zbuffer launches "
-            f"{render_launches} (expected {want_launches})")
-        if render_launches != want_launches:
-            raise AssertionError("the renderer did not launch the kernel once a pass")
+    data = os.path.join(root, "data")
+    r.rasterize_zbuffer_cuda.launches = 0
+    r.pncc_render_cuda.launches = 0
+    _synchronize(dev)
+    t0 = time.perf_counter()
+    rendered = [render_split(data, "train", FLAGSHIP_TRAIN, FLAGSHIP_SIZE, device=dev,
+                             flame_model=flame_model, log_every=0),
+                render_split(data, "val", FLAGSHIP_VAL, FLAGSHIP_SIZE, seed=1, device=dev,
+                             flame_model=flame_model, log_every=0)]
+    _synchronize(dev)
+    render_s = time.perf_counter() - t0
+    render_launches = r.rasterize_zbuffer_cuda.launches
+    want_launches = renderer_launches("train", FLAGSHIP_TRAIN) + renderer_launches(
+        "val", FLAGSHIP_VAL, seed=1)
+    scenes = FLAGSHIP_TRAIN + FLAGSHIP_VAL
+    kept = sum(x["heads"] for x in rendered)
+    log(f"  rendered {scenes} scenes at {FLAGSHIP_SIZE} px in {render_s:.2f} s: "
+        f"{scenes / render_s:.2f} scenes/s, {kept} heads kept; rasterize_zbuffer launches "
+        f"{render_launches} (expected {want_launches})")
+    if render_launches != want_launches:
+        raise AssertionError("the renderer did not launch the kernel once a pass")
 
-        t0 = time.perf_counter()
-        splits = ["train", "val"]
-        dense_report = check_dataset(DAD3DHeadsDataset(
-            data, splits=splits, transforms=default_val_transforms(FLAGSHIP_SIZE)), 4)
-        param_report = check_dataset(RenderedHeadsDataset(data, splits=splits), 4)
-        log(f"  check_dataset, dense and params readers: {dense_report['checked']} and "
-            f"{param_report['checked']} samples, {dense_report['heads']} heads, problems "
-            f"{dense_report['problems'] + param_report['problems']} "
-            f"({time.perf_counter() - t0:.2f} s)")
-        if dense_report["problems"] or param_report["problems"] or \
-                dense_report["checked"] != scenes or param_report["heads"] != kept or \
-                dense_report["heads"] != kept:
-            raise AssertionError("the rendered dataset fails its sweep")
+    t0 = time.perf_counter()
+    splits = ["train", "val"]
+    dense_report = check_dataset(DAD3DHeadsDataset(
+        data, splits=splits, transforms=default_val_transforms(FLAGSHIP_SIZE)), 4)
+    param_report = check_dataset(RenderedHeadsDataset(data, splits=splits), 4)
+    log(f"  check_dataset, dense and params readers: {dense_report['checked']} and "
+        f"{param_report['checked']} samples, {dense_report['heads']} heads, problems "
+        f"{dense_report['problems'] + param_report['problems']} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if dense_report["problems"] or param_report["problems"] or \
+            dense_report["checked"] != scenes or param_report["heads"] != kept or \
+            dense_report["heads"] != kept:
+        raise AssertionError("the rendered dataset fails its sweep")
 
-        ckpt_root = os.path.join(root, "runs")
-        t0 = time.perf_counter()
-        trainer = build_trainer(flagship_argv(data, ckpt_root, dev))
-        matched, total = trainer.restored_leaves
-        log(f"  {FLAGSHIP}: {trainer.arch.name} at {trainer.cfg.image_size} px, batch "
-            f"{trainer.cfg.batch_size}, {trainer.cfg.max_gt_boxes} GT boxes, "
-            f"{type(trainer.train_dataset).__name__}, restore {matched}/{total} leaves, "
-            f"ready in {time.perf_counter() - t0:.2f} s")
-        if matched != total or not isinstance(trainer.train_dataset, RenderedHeadsDataset):
-            raise AssertionError("the flagship trainer is not the params-wire trainer")
-        r.rasterize_zbuffer_cuda.launches = 0
-        if is_cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
-        _synchronize(dev)
-        t0 = time.perf_counter()
-        metrics = trainer.train()
-        _synchronize(dev)
-        train_s = time.perf_counter() - t0
-        train_launches = r.rasterize_zbuffer_cuda.launches
-        peak = torch.cuda.max_memory_allocated(dev) if is_cuda else 0
-        steps = trainer.state.step
-        losses = [_components(c) for c in trainer.step_components]
-        if steps != trainer.steps_per_epoch or trainer.ckpt.latest_step() != steps or \
-                not all(np.isfinite(v) for c in losses for v in c.values()):
-            raise AssertionError(f"flagship training: step {steps}, losses {losses}")
-        if not {"KeypointsNME", "KeypointsFailureRate", "RPYError"} <= set(metrics) or \
-                not all(np.isfinite(v) for v in metrics.values()):
-            raise AssertionError(f"flagship validation metrics: {metrics}")
-        if hostlock.campaign_active():
-            raise AssertionError("the trainer left its host lock behind")
-        timing = trainer.timings[-1]
-        loader_ips = timing["images"] / timing["train_s"]
-        log(f"  one epoch of {steps} steps in {train_s:.2f} s (train {timing['train_s']:.2f}, "
-            f"validate {timing['validate_s']:.2f}, save {timing['save_s']:.2f}); loader-fed "
-            f"{loader_ips:.2f} images/s; checkpoint at step {trainer.ckpt.latest_step()}")
-        log(f"  loss at each step: {[round(c['loss'], 4) for c in losses]}")
-        log(f"  loss at the first step: {losses[0]}")
-        log(f"  validation: {metrics}")
-        log(f"  launches while training: rasterize_zbuffer {train_launches}; peak memory "
-            f"{peak / 2**30:.3f} GiB")
+    ckpt_root = os.path.join(root, "runs")
+    t0 = time.perf_counter()
+    trainer = build_trainer(flagship_argv(data, ckpt_root, dev))
+    matched, total = trainer.restored_leaves
+    log(f"  {FLAGSHIP}: {trainer.arch.name} at {trainer.cfg.image_size} px, batch "
+        f"{trainer.cfg.batch_size}, {trainer.cfg.max_gt_boxes} GT boxes, "
+        f"{type(trainer.train_dataset).__name__}, restore {matched}/{total} leaves, "
+        f"ready in {time.perf_counter() - t0:.2f} s")
+    if matched != total or not isinstance(trainer.train_dataset, RenderedHeadsDataset):
+        raise AssertionError("the flagship trainer is not the params-wire trainer")
+    ckpt_dir = trainer.cfg.ckpt_dir
+    r.rasterize_zbuffer_cuda.launches = 0
+    if is_cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _synchronize(dev)
+    t0 = time.perf_counter()
+    metrics = trainer.train()
+    _synchronize(dev)
+    train_s = time.perf_counter() - t0
+    train_launches = r.rasterize_zbuffer_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev) if is_cuda else 0
+    steps = trainer.state.step
+    losses = [_components(c) for c in trainer.step_components]
+    if steps != trainer.steps_per_epoch or trainer.ckpt.latest_step() != steps or \
+            not all(np.isfinite(v) for c in losses for v in c.values()):
+        raise AssertionError(f"flagship training: step {steps}, losses {losses}")
+    if not {"KeypointsNME", "KeypointsFailureRate", "RPYError"} <= set(metrics) or \
+            not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"flagship validation metrics: {metrics}")
+    if hostlock.campaign_active():
+        raise AssertionError("the trainer left its host lock behind")
+    timing = trainer.timings[-1]
+    loader_ips = timing["images"] / timing["train_s"]
+    log(f"  one epoch of {steps} steps in {train_s:.2f} s (train {timing['train_s']:.2f}, "
+        f"validate {timing['validate_s']:.2f}, save {timing['save_s']:.2f}); loader-fed "
+        f"{loader_ips:.2f} images/s; checkpoint at step {trainer.ckpt.latest_step()}")
+    log(f"  loss at each step: {[round(c['loss'], 4) for c in losses]}")
+    log(f"  loss at the first step: {losses[0]}")
+    log(f"  validation: {metrics}")
+    log(f"  launches while training: rasterize_zbuffer {train_launches}; peak memory "
+        f"{peak / 2**30:.3f} GiB")
 
-        ds = trainer.train_dataset
+    ds = trainer.train_dataset
 
-        def geometry(epoch):
-            ds.set_epoch(epoch)
-            return [ds[i].params for i in range(4)]
+    def geometry(epoch):
+        ds.set_epoch(epoch)
+        return [ds[i].params for i in range(4)]
 
-        first, again, second = geometry(0), geometry(0), geometry(1)
-        same = all(np.array_equal(a, b) for a, b in zip(first, again))
-        moved = any(a.shape != b.shape or not np.array_equal(a, b)
-                    for a, b in zip(first, second))
-        log(f"  set_epoch: epoch 0 twice gives the same augmented parameters: {same}; "
-            f"epoch 1 gives others: {moved}")
-        if not (same and moved):
-            raise AssertionError("set_epoch does not set the augmentation stream")
+    first, again, second = geometry(0), geometry(0), geometry(1)
+    same = all(np.array_equal(a, b) for a, b in zip(first, again))
+    moved = any(a.shape != b.shape or not np.array_equal(a, b)
+                for a, b in zip(first, second))
+    log(f"  set_epoch: epoch 0 twice gives the same augmented parameters: {same}; "
+        f"epoch 1 gives others: {moved}")
+    if not (same and moved):
+        raise AssertionError("set_epoch does not set the augmentation stream")
 
-        # the step alone on device-resident batches, collated once
-        ds.set_epoch(1)
-        host, batches = [], []
-        for b in range(TIMED_STEPS):
-            images, pt = collate_param_samples(
-                [ds[i] for i in range(b * FLAGSHIP_BATCH, (b + 1) * FLAGSHIP_BATCH)],
-                trainer.cfg.max_gt_boxes)
-            host.append((images, pt))
-            batches.append((torch.as_tensor(images).to(dev), pt.to(dev)))
-        step_ms = []
-        for images, pt in batches:
-            _synchronize(dev)
-            s0 = time.perf_counter()
-            _, comps = trainer.step_fn(trainer.state, images, pt)
-            _synchronize(dev)
-            step_ms.append((time.perf_counter() - s0) * 1e3)
-        steady = step_ms[1:]
+    # the step alone on device-resident batches, collated once
+    ds.set_epoch(1)
+    host, batches = [], []
+    for b in range(TIMED_STEPS):
+        images, pt = collate_param_samples(
+            [ds[i] for i in range(b * FLAGSHIP_BATCH, (b + 1) * FLAGSHIP_BATCH)],
+            trainer.cfg.max_gt_boxes)
+        host.append((images, pt))
+        batches.append((torch.as_tensor(images).to(dev), pt.to(dev)))
+    step_ms = []
+    for images, pt in batches:
         _synchronize(dev)
         s0 = time.perf_counter()
-        for images, pt in batches:
-            trainer.step_fn(trainer.state, images, pt)
+        _, comps = trainer.step_fn(trainer.state, images, pt)
         _synchronize(dev)
-        device_ips = len(batches) * FLAGSHIP_BATCH / (time.perf_counter() - s0)
-        # the GT decode alone, as the step runs it (float32, TF32 off)
-        pt = batches[0][1]
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+    steady = step_ms[1:]
+    _synchronize(dev)
+    s0 = time.perf_counter()
+    for images, pt in batches:
+        trainer.step_fn(trainer.state, images, pt)
+    _synchronize(dev)
+    device_ips = len(batches) * FLAGSHIP_BATCH / (time.perf_counter() - s0)
+    # the GT decode alone, as the step runs it (float32, TF32 off)
+    pt = batches[0][1]
+    decode_param_targets(trainer.flame, pt)
+    reps = 10
+    _synchronize(dev)
+    s0 = time.perf_counter()
+    for _ in range(reps):
         decode_param_targets(trainer.flame, pt)
-        reps = 10
-        _synchronize(dev)
-        s0 = time.perf_counter()
-        for _ in range(reps):
-            decode_param_targets(trainer.flame, pt)
-        _synchronize(dev)
-        decode_ms = (time.perf_counter() - s0) * 1e3 / reps
-        median = float(np.median(steady))
-        log(f"  step alone (device-resident batches of {FLAGSHIP_BATCH}): first "
-            f"{step_ms[0]:.2f} ms, then median {median:.2f} ms ({min(steady):.2f}-"
-            f"{max(steady):.2f}) over {len(steady)}; device-fed {device_ips:.2f} images/s; "
-            f"decode_param_targets of {FLAGSHIP_BATCH} x {trainer.cfg.max_gt_boxes} rows "
-            f"{decode_ms:.3f} ms = {100 * decode_ms / median:.1f}% of a step")
-        busy = None
-        if is_cuda:
-            try:
-                images, pt = batches[0]
-                busy = profile_window(
-                    f"one flagship step, batch {FLAGSHIP_BATCH} at {FLAGSHIP_SIZE} px",
-                    lambda: trainer.step_fn(trainer.state, images, pt))
-            except RuntimeError as exc:  # the profiler is a reading, not a check
-                log(f"  flagship profiler: not measured ({exc})")
-        log(f"  flagship device busy share: "
-            f"{'not measured' if busy is None else f'{100 * busy:.1f}%'}")
+    _synchronize(dev)
+    decode_ms = (time.perf_counter() - s0) * 1e3 / reps
+    median = float(np.median(steady))
+    log(f"  step alone (device-resident batches of {FLAGSHIP_BATCH}): first "
+        f"{step_ms[0]:.2f} ms, then median {median:.2f} ms ({min(steady):.2f}-"
+        f"{max(steady):.2f}) over {len(steady)}; device-fed {device_ips:.2f} images/s; "
+        f"decode_param_targets of {FLAGSHIP_BATCH} x {trainer.cfg.max_gt_boxes} rows "
+        f"{decode_ms:.3f} ms = {100 * decode_ms / median:.1f}% of a step")
+    busy = None
+    if is_cuda:
+        try:
+            images, pt = batches[0]
+            busy = profile_window(
+                f"one flagship step, batch {FLAGSHIP_BATCH} at {FLAGSHIP_SIZE} px",
+                lambda: trainer.step_fn(trainer.state, images, pt))
+        except RuntimeError as exc:  # the profiler is a reading, not a check
+            log(f"  flagship profiler: not measured ({exc})")
+    log(f"  flagship device busy share: "
+        f"{'not measured' if busy is None else f'{100 * busy:.1f}%'}")
 
-        # decode_param_targets on the card against the CPU, one collated batch
-        cpu_flame = FlameModel.from_assets(device="cpu")
-        decode_err = _close_fields(decode_param_targets(trainer.flame, host[0][1]),
-                                   decode_param_targets(cpu_flame, host[0][1]))
-        log(f"  decode_param_targets, card against CPU on one batch: max difference "
-            f"{decode_err:.3e} of each field's largest magnitude")
-        if decode_err > DECODE_RTOL:
-            raise AssertionError("decode_param_targets: card and CPU disagree")
+    # decode_param_targets on the card against the CPU, one collated batch
+    cpu_flame = FlameModel.from_assets(device="cpu")
+    decode_err = _close_fields(decode_param_targets(trainer.flame, host[0][1]),
+                               decode_param_targets(cpu_flame, host[0][1]))
+    log(f"  decode_param_targets, card against CPU on one batch: max difference "
+        f"{decode_err:.3e} of each field's largest magnitude")
+    if decode_err > DECODE_RTOL:
+        raise AssertionError("decode_param_targets: card and CPU disagree")
 
-        # the extreme-batch panel with no TensorBoard logger (JPEG on disk)
-        viz_dir = os.path.join(root, "viz")
-        viz = ExtremeBatchVisualizationCallback(viz_dir, freq=1, logger=None)
-        for (images, pt), c in zip(host, losses):
-            viz.update(c["loss"], images, pt.gt_bboxes, pt.pad_gt_mask[..., 0])
-        viz.on_epoch_end(0, predict_fn=trainer._predict_for_viz)
-        panel = cv2.imread(os.path.join(viz_dir, "extreme_batch_epoch0.jpg"))
-        shape = None if panel is None else panel.shape
-        log(f"  extreme-batch panel: {shape}")
-        if shape != (FLAGSHIP_BATCH * FLAGSHIP_SIZE, 2 * FLAGSHIP_SIZE, 3):
-            raise AssertionError(f"extreme-batch panel of shape {shape}")
-        loss_cfg = trainer.cfg.loss
-        del trainer, batches
+    # the extreme-batch panel with no TensorBoard logger (JPEG on disk)
+    viz_dir = os.path.join(root, "viz")
+    viz = ExtremeBatchVisualizationCallback(viz_dir, freq=1, logger=None)
+    for (images, pt), c in zip(host, losses):
+        viz.update(c["loss"], images, pt.gt_bboxes, pt.pad_gt_mask[..., 0])
+    viz.on_epoch_end(0, predict_fn=trainer._predict_for_viz)
+    panel = cv2.imread(os.path.join(viz_dir, "extreme_batch_epoch0.jpg"))
+    shape = None if panel is None else panel.shape
+    log(f"  extreme-batch panel: {shape}")
+    if shape != (FLAGSHIP_BATCH * FLAGSHIP_SIZE, 2 * FLAGSHIP_SIZE, 3):
+        raise AssertionError(f"extreme-batch panel of shape {shape}")
+    loss_cfg = trainer.cfg.loss
+    del trainer, batches
 
-        # one sample through both wires from the same weights, float32
-        wires = wire_steps(dev, data, loss_cfg)
-        worst = max(abs(wires["params"][k] - wires["dense"][k])
-                    / max(abs(wires["dense"][k]), 1e-12) for k in wires["dense"]
-                    if k.startswith("loss"))
-        log(f"  one sample, float32: dense wire {wires['dense']}")
-        log(f"  one sample, float32: params wire {wires['params']}")
-        log(f"  params wire against dense wire: max loss-component relative difference "
-            f"{worst:.3e} (bar {WIRE_RTOL:g})")
-        if wires["params"]["num_pos"] != wires["dense"]["num_pos"] or worst > WIRE_RTOL:
-            raise AssertionError("the params-wire step disagrees with the dense-wire step")
+    # one sample through both wires from the same weights, float32
+    wires = wire_steps(dev, data, loss_cfg)
+    worst = max(abs(wires["params"][k] - wires["dense"][k])
+                / max(abs(wires["dense"][k]), 1e-12) for k in wires["dense"]
+                if k.startswith("loss"))
+    log(f"  one sample, float32: dense wire {wires['dense']}")
+    log(f"  one sample, float32: params wire {wires['params']}")
+    log(f"  params wire against dense wire: max loss-component relative difference "
+        f"{worst:.3e} (bar {WIRE_RTOL:g})")
+    if wires["params"]["num_pos"] != wires["dense"]["num_pos"] or worst > WIRE_RTOL:
+        raise AssertionError("the params-wire step disagrees with the dense-wire step")
 
-        # the dense wire through the entry point: a short epoch on the card
-        dense = build_trainer(flagship_argv(data, ckpt_root, dev, params_wire=False) + [
-            f"steps_per_epoch={DENSE_STEPS}"])
-        t0 = time.perf_counter()
-        dense_metrics = dense.train()
-        dense_losses = [_components(c)["loss"] for c in dense.step_components]
-        log(f"  dense wire ({type(dense.train_dataset).__name__}): {dense.state.step} steps, "
-            f"losses {[round(v, 4) for v in dense_losses]}, validation KeypointsNME "
-            f"{dense_metrics.get('KeypointsNME')}, {time.perf_counter() - t0:.2f} s")
-        if dense.state.step != DENSE_STEPS or dense.ckpt.latest_step() != DENSE_STEPS or \
-                not all(np.isfinite(dense_losses)) or \
-                not isinstance(dense.train_dataset, DAD3DHeadsDataset):
-            raise AssertionError("the dense-wire trainer did not train")
+    # the dense wire through the entry point: a short epoch on the card
+    dense = build_trainer(flagship_argv(data, ckpt_root, dev, params_wire=False) + [
+        f"steps_per_epoch={DENSE_STEPS}"])
+    t0 = time.perf_counter()
+    dense_metrics = dense.train()
+    dense_losses = [_components(c)["loss"] for c in dense.step_components]
+    log(f"  dense wire ({type(dense.train_dataset).__name__}): {dense.state.step} steps, "
+        f"losses {[round(v, 4) for v in dense_losses]}, validation KeypointsNME "
+        f"{dense_metrics.get('KeypointsNME')}, {time.perf_counter() - t0:.2f} s")
+    if dense.state.step != DENSE_STEPS or dense.ckpt.latest_step() != DENSE_STEPS or \
+            not all(np.isfinite(dense_losses)) or \
+            not isinstance(dense.train_dataset, DAD3DHeadsDataset):
+        raise AssertionError("the dense-wire trainer did not train")
 
     return {"launches": {"rasterize_zbuffer": render_launches + train_launches,
                          "pncc_render": r.pncc_render_cuda.launches},
@@ -1402,7 +1427,214 @@ def phase_flagship(dev, flame_model) -> dict:
             "decode_param_targets_ms": decode_ms, "decode_share": decode_ms / median,
             "peak_memory_bytes": peak, "device_busy_share": busy,
             "loss_first": losses[0], "loss_last": losses[-1], "validation": metrics,
-            "decode_card_vs_cpu": decode_err, "wires": wires}
+            "decode_card_vs_cpu": decode_err, "wires": wires,
+            "data_dir": data, "ckpt_dir": ckpt_dir}
+
+
+def phase_standin_kernel(flame_model):
+    """The kernel against its plain version at the DAD stand-in renderer's
+    input (a sample of three heads at EVAL_SIZE, drawn as one mesh), bit for
+    bit, and its times there."""
+    from head_detector_tpu_torch.ops import rasterize as r
+    from head_detector_tpu_torch.tools.render_dad_testset import DadRenderer, sample_seed
+
+    s = EVAL_SIZE
+    renderer = DadRenderer(s, DAD_MAX_HEADS, device=flame_model.device, flame_model=flame_model)
+    index = next(i for i in range(10000) if int(np.random.RandomState(
+        sample_seed(DAD_SEED, i)).choice(np.arange(1, DAD_MAX_HEADS + 1))) == 3)
+    args = renderer.scene_mesh(renderer.place(np.random.RandomState(sample_seed(DAD_SEED, index))))
+    got, want, err = check_zbuffer(r, f"DAD stand-in sample {index} (3 heads as one mesh)",
+                                   args, s, s)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])) or not want[1].any():
+        raise AssertionError("the kernel is not bit-equal to plain at the stand-in's input")
+    timed = time_entry(r, "rasterize_zbuffer", "the DAD stand-in's pass (3 heads as one mesh)",
+                       *args, s)
+    return err, {k: timed[k] for k in ("timed_at", "ms", "device_ms", "plain_ms", "bound_ms",
+                                       "bound_by")}
+
+
+def _per_sample(evaluator) -> list:
+    return [{k: rec[k] for k in ("index", "nme_2d", "z_n", "rot_error", "angle_error",
+                                 "chamfer")} for rec in evaluator.selected]
+
+
+def phase_evaluation(dev, detector, scenes, root: str, data: str, ckpt_dir: str) -> dict:
+    """Weights in and out and the evaluation protocols at EVAL_SIZE: the
+    shipped checkpoint's round trip, the export of phase 8's flagship step,
+    the DAD and FDDB stand-ins, the protocols on the card, and the card
+    against the CPU on the first samples."""
+    from head_detector_tpu_torch.detector import HeadDetector
+    from head_detector_tpu_torch.evaluation.evaluate_dad import DadEvaluator, DadSample
+    from head_detector_tpu_torch.evaluation.evaluate_fddb import evaluate_fddb
+    from head_detector_tpu_torch.evaluation.predictor import EvalPredictor
+    from head_detector_tpu_torch.ops import rasterize as r
+    from head_detector_tpu_torch.tools import eval_checkpoint, run_protocols
+    from head_detector_tpu_torch.tools.make_fddb_standin import make_fddb_standin
+    from head_detector_tpu_torch.tools.render_dad_testset import render_testset, sample_seed
+    from head_detector_tpu_torch.weights import (
+        flax_from_state_dict,
+        load_variables,
+        save_variables,
+        train_state_dict_from_flax,
+    )
+
+    # 1. the shipped checkpoint through the port's training layout and back
+    t0 = time.perf_counter()
+    shipped = load_variables(CHECKPOINT)
+    state, used = train_state_dict_from_flax(shipped)
+    back = eval_checkpoint.cast_float32_leaves(flax_from_state_dict(state), np.float16)
+    reexport = os.path.join(root, "reexport.msgpack")
+    save_variables(back, reexport)
+    with open(reexport, "rb") as f, open(CHECKPOINT, "rb") as g:
+        same_bytes = f.read() == g.read()
+    again = load_variables(reexport)
+    leaves = flatten_tree(shipped)
+    unequal = [k for k, v in flatten_tree(again).items()
+               if v.dtype != leaves[k].dtype or v.tobytes() != leaves[k].tobytes()]
+    log(f"  round trip of the shipped checkpoint ({used} leaves, "
+        f"{time.perf_counter() - t0:.2f} s): bytes equal {same_bytes}, leaves not bit-equal "
+        f"{len(unequal)} of {len(leaves)}")
+    if not same_bytes or unequal or len(flatten_tree(again)) != len(leaves):
+        raise AssertionError("the shipped checkpoint does not survive the round trip")
+    redet = HeadDetector(model=MODEL, image_size=IMAGE_SIZE, checkpoint=reexport, device=dev)
+    same_detections(redet.predict_batch(scenes, confidence_threshold=0.5),
+                    detector.predict_batch(scenes, confidence_threshold=0.5),
+                    "the re-exported checkpoint")
+    log(f"  HeadDetector on the re-export: boxes and scores bit-equal to phase 3's detector on "
+        f"{len(scenes)} scenes")
+    del redet
+
+    # 2. phase 8's flagship step: score both parameter sets, export f32 and f16
+    exports = {}
+    t0 = time.perf_counter()
+    scored = eval_checkpoint.main([
+        "--ckpt-dir", ckpt_dir, "--arch", MODEL, "--image-size", str(FLAGSHIP_SIZE),
+        "--which", "both", "--data-dir", data, "--batch-size", str(FLAGSHIP_BATCH),
+        "--export-msgpack", os.path.join(root, "step_raw_f32.msgpack"), "--device", str(dev)])
+    eval_s = time.perf_counter() - t0
+    log(f"  eval_checkpoint --which both on the flagship step ({eval_s:.2f} s): "
+        f"raw {scored['raw']}; EMA {scored['ema']}")
+    if set(scored) != {"raw", "ema"} or not all(
+            np.isfinite(v) for m in scored.values() for v in m.values()):
+        raise AssertionError(f"eval_checkpoint metrics: {scored}")
+    eval_checkpoint.main(["--ckpt-dir", ckpt_dir, "--arch", MODEL, "--image-size",
+                          str(FLAGSHIP_SIZE), "--which", "ema", "--no-eval", "--export-msgpack",
+                          os.path.join(root, "step_ema_f16.msgpack"), "--export-dtype", "f16",
+                          "--device", str(dev)])
+    for name in ("step_raw_f32", "step_ema_f16"):
+        path = os.path.join(root, name + ".msgpack")
+        det = HeadDetector(model=MODEL, image_size=IMAGE_SIZE, checkpoint=path, device=dev)
+        results = det.predict_batch(scenes, confidence_threshold=0.5)
+        heads = [len(res.heads) for res in results]
+        exports[name] = {"leaves": list(det.restored_leaves), "bytes": os.path.getsize(path),
+                         "heads": heads}
+        log(f"  HeadDetector on {name}: restored {det.restored_leaves[0]}/"
+            f"{det.restored_leaves[1]} leaves, {os.path.getsize(path)} bytes, heads per scene "
+            f"{heads}")
+        if det.restored_leaves[0] != det.restored_leaves[1] or not all(
+                np.isfinite(h.vertices_3d).all() for res in results for h in res.heads):
+            raise AssertionError(f"the exported {name} does not serve")
+        del det
+
+    # 3. the stand-in sets, launch counts zeroed first
+    dad_dir, fddb_dir = os.path.join(root, "dad_standin"), os.path.join(root, "fddb_standin")
+    r.rasterize_zbuffer_cuda.launches = 0
+    r.pncc_render_cuda.launches = 0
+    _synchronize(dev)
+    t0 = time.perf_counter()
+    done = render_testset(dad_dir, DAD_SAMPLES, EVAL_SIZE, DAD_SEED, DAD_MAX_HEADS, device=dev,
+                          log_every=0)
+    _synchronize(dev)
+    render_s = time.perf_counter() - t0
+    launches = {"rasterize_zbuffer": r.rasterize_zbuffer_cuda.launches,
+                "pncc_render": r.pncc_render_cuda.launches}
+    heads = [int(np.random.RandomState(sample_seed(DAD_SEED, i)).choice(
+        np.arange(1, DAD_MAX_HEADS + 1))) for i in range(DAD_SAMPLES)]
+    log(f"  rendered {done['samples']} DAD stand-in samples at {EVAL_SIZE} px ({sum(heads)} "
+        f"heads) in {render_s:.2f} s: {DAD_SAMPLES / render_s:.2f} samples/s; launches "
+        f"{launches} (one a sample expected)")
+    if launches["rasterize_zbuffer"] != DAD_SAMPLES:
+        raise AssertionError("the DAD stand-in renderer did not launch the kernel once a sample")
+    n_fddb = make_fddb_standin(data, fddb_dir, "val")
+    log(f"  FDDB stand-in: {n_fddb} images of phase 8's validation split")
+
+    # 4. the protocols on the card
+    out = os.path.join(root, "protocols.json")
+    protocols = run_protocols.main([
+        "--checkpoint", CHECKPOINT, "--arch", MODEL, "--image-size", str(EVAL_SIZE),
+        "--dad-json", os.path.join(dad_dir, "dataset.json"), "--dad-base", dad_dir,
+        "--fddb-dir", fddb_dir, "--out", out, "--device", str(dev)])
+    dad_ms = protocols["seconds"]["dad"] * 1e3 / DAD_SAMPLES
+    fddb_ms = protocols["seconds"]["fddb"] * 1e3 / n_fddb
+    log(f"  DAD on the card ({DAD_SAMPLES} samples): {protocols['dad']}; host "
+        f"{dad_ms:.2f} ms/sample")
+    log(f"  FDDB on the card ({n_fddb} images): {protocols['fddb']}; host "
+        f"{fddb_ms:.2f} ms/image")
+    if not all(np.isfinite(v) for v in protocols["dad"].values()) or \
+            not 0.0 < protocols["fddb"]["AP"] <= 1.0:
+        raise AssertionError(f"protocol results: {protocols}")
+
+    # 5. the card against the CPU on the first samples, float32 with TF32 off
+    with open(os.path.join(dad_dir, "dataset.json")) as f:
+        samples = [DadSample.from_config(c, dad_dir) for c in json.load(f)["standin"]]
+    fddb_check = os.path.join(root, "fddb_check")
+    make_fddb_standin(data, fddb_check, "val", limit=CHECK_SAMPLES)
+    kw = dict(model_name=MODEL, checkpoint=CHECKPOINT, image_size=EVAL_SIZE,
+              confidence_threshold=0.2, nms_iou_threshold=0.5, post_nms_max_predictions=30)
+    sides = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        predictor = EvalPredictor(device=where, **kw)
+        evaluator = DadEvaluator(samples[:CHECK_SAMPLES], predictor)
+        dad_result = evaluator()
+        predictor.callback = fddb_callback(predictor)
+        sides[str(where)] = {"dad": dad_result, "per_sample": _per_sample(evaluator),
+                             "fddb": evaluate_fddb(fddb_check, predictor),
+                             "seconds": time.perf_counter() - t0}
+    card, cpu = sides[str(dev)], sides["cpu"]
+    worst = {"nme_2d": 0.0, "chamfer": 0.0, "rot_error": 0.0, "angle_error": 0.0, "z_n": 0.0}
+    for g, w in zip(card["per_sample"], cpu["per_sample"]):
+        if g["index"] != w["index"]:
+            raise AssertionError(f"card and CPU select different heads: {g} {w}")
+        for k in ("nme_2d", "chamfer"):
+            worst[k] = max(worst[k], abs(g[k] - w[k]) / abs(w[k]))
+        for k in ("rot_error", "angle_error", "z_n"):
+            worst[k] = max(worst[k], abs(g[k] - w[k]))
+    ap_diff = abs(card["fddb"]["AP"] - cpu["fddb"]["AP"])
+    bars = {"nme_2d": 1e-3, "chamfer": 1e-3, "rot_error": 1e-4, "angle_error": 1e-2, "z_n": 1e-2}
+    log(f"  card against CPU on {CHECK_SAMPLES} DAD samples (CPU {cpu['seconds']:.2f} s, card "
+        f"{card['seconds']:.2f} s): same heads selected "
+        f"{[g['index'] for g in card['per_sample']]}; largest differences "
+        + ", ".join(f"{k} {v:.3e} (bar {bars[k]:g})" for k, v in worst.items())
+        + f"; FDDB AP of {CHECK_SAMPLES} images {card['fddb']['AP']:.6f} against "
+        f"{cpu['fddb']['AP']:.6f}, |d| {ap_diff:.3e} (bar 1e-3)")
+    if len(card["per_sample"]) != CHECK_SAMPLES or any(worst[k] > bars[k] for k in bars) or \
+            ap_diff > 1e-3:
+        raise AssertionError("the protocols on the card disagree with the CPU")
+
+    return {"launches": launches, "dad_samples_per_s": DAD_SAMPLES / render_s,
+            "dad": protocols["dad"], "fddb": protocols["fddb"], "dad_host_ms": dad_ms,
+            "fddb_host_ms": fddb_ms, "eval_checkpoint": scored, "exports": exports,
+            "card_vs_cpu": worst, "fddb_ap_card_vs_cpu": ap_diff}
+
+
+def fddb_callback(predictor):
+    """The FDDB pass's post-prediction settings, as ``run_protocols`` swaps them in."""
+    from head_detector_tpu_torch.post_prediction import YoloHeadsPostPredictionCallback
+
+    return YoloHeadsPostPredictionCallback(
+        flame_model=predictor.flame, confidence_threshold=0.5, nms_iou_threshold=0.5,
+        pre_nms_max_predictions=1000, post_nms_max_predictions=500)
+
+
+def flatten_tree(tree, prefix=""):
+    """{"/a/b": leaf} of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree)}
 
 
 def main() -> int:
@@ -1417,6 +1649,9 @@ def main() -> int:
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    # the trainer's host lock in this run's temporary directory
+    os.environ.setdefault("HDT_CAMPAIGN_LOCK",
+                          os.path.join(tempfile.gettempdir(), "hdt_campaign.lock"))
     smi = nvidia_smi()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
@@ -1430,6 +1665,7 @@ def main() -> int:
     log("phase 2: kernels vs plain on the card")
     flame_model = FlameModel.from_assets(device=dev)
     entries = phase_kernels(flame_model)
+    standin_err, at_standin = phase_standin_kernel(flame_model)
 
     log("phase 3: main path")
     t0 = time.perf_counter()
@@ -1461,19 +1697,29 @@ def main() -> int:
     log("  " + json.dumps({"training": training}))
 
     log("phase 8: the flagship training configuration")
-    renderer_err, at_renderer = phase_renderer_kernel(flame_model)
-    flagship = phase_flagship(dev, flame_model)
-    log("  " + json.dumps({"flagship": flagship}))
+    with tempfile.TemporaryDirectory() as root:
+        renderer_err, at_renderer = phase_renderer_kernel(flame_model)
+        flagship = phase_flagship(dev, flame_model, root)
+        log("  " + json.dumps({"flagship": flagship}))
 
-    log("phase 9: kernels")
-    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], renderer_err)
+        log("phase 9: export and evaluation")
+        evaluation = phase_evaluation(dev, detector, scenes, root, flagship["data_dir"],
+                                      flagship["ckpt_dir"])
+        log("  " + json.dumps({"evaluation": evaluation}))
+
+    log("phase 10: kernels")
+    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], renderer_err, standin_err)
     entries[0]["at_renderer"] = at_renderer
+    entries[0]["at_standin"] = at_standin
     for entry in entries:
         serving = entry["launches"]
         entry["launches_by_path"] = {"serving": serving,
                                      "training": training["launches"].get(entry["name"], 0),
-                                     "flagship": flagship["launches"].get(entry["name"], 0)}
+                                     "flagship": flagship["launches"].get(entry["name"], 0),
+                                     "evaluation": evaluation["launches"].get(entry["name"], 0)}
         entry["launches"] = sum(entry["launches_by_path"].values())
+    if entries[0]["launches_by_path"]["evaluation"] <= 0:
+        raise AssertionError("rasterize_zbuffer was not launched on the evaluation path")
 
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -3,9 +3,11 @@
 A copy of ``head_detector_tpu/hostlock.py``'s protocol (the port imports
 nothing of the JAX package):
 
-* the trainer writes its PID into ``hdt_campaign.lock`` in the temporary
-  directory (``HDT_CAMPAIGN_LOCK`` overrides the path) for the duration of
-  any training run that is not on the CPU, and removes it on exit;
+* the trainer writes its PID into ``/tmp/hdt_campaign.lock``, the
+  reference's path whatever ``TMPDIR`` says, so that a run of either
+  package sees the other's lock (``HDT_CAMPAIGN_LOCK`` overrides the path),
+  for the duration of any training run that is not on the CPU, and removes
+  it on exit;
 * a benchmark may record whether its numbers were taken beside a run
   (``campaign_active``).
 
@@ -15,12 +17,12 @@ A lock whose holder is dead is stale: it is ignored and removed.
 from __future__ import annotations
 
 import os
-import tempfile
+
+DEFAULT_LOCK_PATH = "/tmp/hdt_campaign.lock"
 
 
 def lock_path() -> str:
-    return os.environ.get("HDT_CAMPAIGN_LOCK",
-                          os.path.join(tempfile.gettempdir(), "hdt_campaign.lock"))
+    return os.environ.get("HDT_CAMPAIGN_LOCK", DEFAULT_LOCK_PATH)
 
 
 def _holder_pid() -> int:

@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from head_detector_tpu_torch.head_info import RPY
+
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
     # x / max(||x||, 1e-12), the torch.nn.functional.normalize rule
@@ -77,3 +79,10 @@ def rotation_mats_to_rpy(R: torch.Tensor) -> torch.Tensor:
     pitch = limit_angle(euler[..., 0] - 180.0)
     yaw = limit_angle(euler[..., 1])
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def calculate_rpy(rotation_6dof):
+    """One head's 6DoF rotation parameters -> ``RPY`` in degrees."""
+    v = torch.as_tensor(rotation_6dof, dtype=torch.float32).reshape(1, 6)
+    rpy = rotation_mats_to_rpy(rot_mat_from_6dof(v))[0].tolist()
+    return RPY(roll=rpy[0], pitch=rpy[1], yaw=rpy[2])

@@ -4,7 +4,9 @@ Counterpart of ``head_detector_tpu/post_prediction.py``: per image,
 confidence filter -> top-k pre-NMS -> NMS -> keep post-NMS -> FLAME
 reproject to 2D/3D vertices, then per-image ``YoloHeadsPredictions``.  The
 batch is decoded on the device the predictions are on (the port's
-``ops/nms.py``, float32 FLAME with TF32 off) and downloaded once.
+``ops/nms.py``, float32 FLAME with TF32 off) and downloaded once; only the
+kept slots are skinned (the reference skins every slot of the budget and
+drops the empty ones on the host).
 """
 
 from __future__ import annotations
@@ -67,25 +69,27 @@ class YoloHeadsPostPredictionCallback:
                 fuse_flame=self.param_fusion,
                 fusion_iou=self.fusion_iou,
             )
-            b, k, p = res.flame_params.shape
-            verts3d, _, proj = reproject_spatial_vertices(
-                self.flame_model, res.flame_params.reshape(b * k, p), to_2d=False)
-        v = verts3d.shape[-2]
-        return (res.boxes, res.scores, res.flame_params, verts3d.reshape(b, k, v, 3),
-                proj[..., :2].reshape(b, k, v, 2), res.valid)
+            # only the kept slots: a budget of 500 (the FDDB protocol) would
+            # otherwise skin and download 500 meshes an image
+            rows = res.flame_params[res.valid]
+            verts3d, _, proj = reproject_spatial_vertices(self.flame_model, rows, to_2d=False)
+        return res.boxes, res.scores, res.flame_params, verts3d, proj[..., :2], res.valid
 
     def __call__(self, decoded: DecodedPredictions) -> List[YoloHeadsPredictions]:
         boxes, scores, params, verts3d, verts2d, valid = (
             x.cpu().numpy() for x in self._decode(
                 decoded.boxes_xyxy, decoded.scores, decoded.flame_params))
         out: List[YoloHeadsPredictions] = []
+        start = 0
         for i in range(boxes.shape[0]):
             keep = valid[i]
+            end = start + int(keep.sum())
             out.append(YoloHeadsPredictions(
                 scores=scores[i][keep],
                 bboxes_xyxy=boxes[i][keep],
                 mm_params=params[i][keep],
-                predicted_3d_vertices=verts3d[i][keep],
-                predicted_2d_vertices=verts2d[i][keep],
+                predicted_3d_vertices=verts3d[start:end],
+                predicted_2d_vertices=verts2d[start:end],
             ))
+            start = end
         return out

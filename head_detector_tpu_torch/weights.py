@@ -7,7 +7,12 @@ path) and ``head_detector_tpu/export.py:_fuse_one`` / ``fuse_qarepvgg``.
   ``msgpack``: arrays are ext type 1 holding a packed ``(shape, dtype name,
   C-order bytes)`` triple, numpy scalars ext type 3.  (flax also packs
   complex numbers as type 2, refused here, and splits leaves above 1 GiB
-  into chunk dictionaries; no checkpoint of these models has either.)
+  into chunk dictionaries; no checkpoint of these models has either.)  A
+  path ending in ``.pth``/``.pt``/``.ckpt`` is read as a SuperGradients
+  state dict and converted by ``tools/convert_torch_checkpoint.py``.
+  :func:`save_variables` is the writer: the same bytes as flax's
+  ``msgpack_serialize`` of the tree (keys sorted, as flax's tree copy sorts
+  them), refusing what the reader refuses.
 * :func:`state_dict_from_flax` turns a ``{params, batch_stats}`` tree, in the
   training layout (QARepVGG branches, folded here) or the deploy layout
   (``rbr_reparam``), into the port's state dict: HWIO kernels become OIHW,
@@ -28,6 +33,9 @@ path) and ``head_detector_tpu/export.py:_fuse_one`` / ``fuse_qarepvgg``.
 
 from __future__ import annotations
 
+import os
+import pickle
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import msgpack
@@ -56,10 +64,94 @@ def _ext_hook(code: int, data: bytes):
     raise ValueError(f"unsupported msgpack ext type {code}")
 
 
-def load_variables(path: str) -> Dict[str, Any]:
-    """Read a flax msgpack checkpoint into a nested dict of numpy arrays."""
+def _load_msgpack(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+
+
+def _load_torch(path: str) -> Any:
+    """``torch.load`` of a checkpoint file, tensors only unless the caller
+    opts in to full pickle loading with ``HDT_UNSAFE_TORCH_LOAD=1``."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as exc:  # a global that weights_only refuses
+        if os.environ.get("HDT_UNSAFE_TORCH_LOAD") != "1":
+            raise RuntimeError(
+                f"{path} is not loadable with weights_only=True. If you "
+                "trust this checkpoint, set HDT_UNSAFE_TORCH_LOAD=1 to "
+                "allow full (unsafe) pickle deserialization."
+            ) from exc
+        warnings.warn(
+            f"HDT_UNSAFE_TORCH_LOAD=1: loading {path} with full pickle "
+            "deserialization (arbitrary code execution risk)."
+        )
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_variables(path: str) -> Dict[str, Any]:
+    """Read a checkpoint into a nested dict of numpy arrays: a flax msgpack
+    file, or, for a path ending in ``.pth``/``.pt``/``.ckpt``, a torch /
+    SuperGradients state dict converted on the fly (a reference user's
+    checkpoint).  A port training step's ``state.pt`` is neither: export it
+    with ``tools/eval_checkpoint.py --export-msgpack``."""
+    if not path.endswith((".pth", ".pt", ".ckpt")):
+        return _load_msgpack(path)
+    from head_detector_tpu_torch.tools.convert_torch_checkpoint import convert
+
+    raw = _load_torch(path)
+    tree, _ = convert(raw if isinstance(raw, dict) else raw.state_dict())
+    if not count_leaves(tree):
+        raise ValueError(f"{path} holds no backbone/neck/heads tensors of a state dict; "
+                         "a training step's state.pt is exported with "
+                         "tools/eval_checkpoint.py --export-msgpack")
+    return tree
+
+
+_MAX_LEAF_BYTES = 2**30  # flax splits larger leaves into chunks
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct or arr.dtype.kind == "c":
+        raise ValueError(f"unsupported leaf dtype {arr.dtype}")
+    if arr.dtype.name == "bfloat16":
+        raise ValueError("bfloat16 leaves are not supported by this writer")
+    if arr.nbytes > _MAX_LEAF_BYTES:
+        raise ValueError(f"a leaf of {arr.nbytes} bytes is over 1 GiB (flax would chunk it)")
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")), use_bin_type=True)
+
+
+def _ext_pack(x):
+    if isinstance(x, np.ndarray):
+        return msgpack.ExtType(_EXT_NDARRAY, _ndarray_to_bytes(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
+    raise TypeError(f"cannot serialize a leaf of type {type(x).__name__}")
+
+
+def _host_tree(tree):
+    """Dicts with keys in sorted order (flax's tree copy sorts them) and
+    tensors as numpy arrays; other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, torch.Tensor):
+        if tree.dtype == torch.bfloat16:
+            raise ValueError("bfloat16 leaves are not supported by this writer")
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def serialize_variables(variables: Dict[str, Any]) -> bytes:
+    """The bytes of flax's ``msgpack_serialize`` for a tree of numpy arrays,
+    numpy scalars and tensors (as arrays)."""
+    return msgpack.packb(_host_tree(variables), default=_ext_pack, strict_types=True)
+
+
+def save_variables(variables: Dict[str, Any], path: str) -> None:
+    """Write ``variables`` as a flax msgpack checkpoint that both packages'
+    ``load_variables`` read."""
+    data = serialize_variables(variables)
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def count_leaves(tree) -> int:

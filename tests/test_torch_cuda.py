@@ -249,3 +249,27 @@ def test_streaming_batch_on_card_matches_cpu(cuda_device):
             assert v.device.type == "cuda"
             ref = w["vertices"][slot]
             assert float(torch.linalg.norm(v.cpu() - ref) / torch.linalg.norm(ref)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_dad_standin_sample_on_card_matches_plain(cuda_device):
+    """One DAD stand-in sample of three heads at 512 px (the evaluation
+    path's input: all heads as one mesh): the kernel's canvas and hit mask
+    bit-equal to the plain version's on the same card tensors, and
+    ``DadRenderer.draw`` launches the kernel once."""
+    from head_detector_tpu_torch.tools.render_dad_testset import DadRenderer, sample_seed
+
+    renderer = DadRenderer(512, max_heads=3, device=cuda_device)
+    index = next(i for i in range(1000) if int(np.random.RandomState(
+        sample_seed(99, i)).choice(np.arange(1, 4))) == 3)
+    scene = renderer.place(np.random.RandomState(sample_seed(99, index)))
+    args = renderer.scene_mesh(scene)
+    got = r.rasterize_zbuffer_cuda(*args, 512, 512)
+    want = r.rasterize_zbuffer_plain(*args, 512, 512)
+    torch.cuda.synchronize()
+    assert want[1].any()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    before = r.rasterize_zbuffer_cuda.launches
+    image, cfgs = renderer.draw(np.random.RandomState(sample_seed(99, index)))
+    assert r.rasterize_zbuffer_cuda.launches == before + 1
+    assert image.shape == (512, 512, 3) and len(cfgs) == 3

@@ -148,8 +148,24 @@ def test_port_imports_no_jax():
         "        'head_detector_tpu_torch.weights', 'head_detector_tpu_torch.cuda_build',\n"
         "        'head_detector_tpu_torch.pipeline', 'head_detector_tpu_torch.utils',\n"
         "        'head_detector_tpu_torch.draw_utils', 'head_detector_tpu_torch.ops.warp',\n"
-        "        'head_detector_tpu_torch.evaluation.head_alignment', 'chip_smoke']\n"
+        "        'head_detector_tpu_torch.evaluation.head_alignment',\n"
+        "        'head_detector_tpu_torch.evaluation', 'head_detector_tpu_torch.evaluation.predictor',\n"
+        "        'head_detector_tpu_torch.evaluation.dad_metrics',\n"
+        "        'head_detector_tpu_torch.evaluation.detection_ap',\n"
+        "        'head_detector_tpu_torch.evaluation.head_mesh',\n"
+        "        'head_detector_tpu_torch.evaluation.transforms3dmm',\n"
+        "        'head_detector_tpu_torch.evaluation.evaluate_dad',\n"
+        "        'head_detector_tpu_torch.evaluation.evaluate_pose',\n"
+        "        'head_detector_tpu_torch.evaluation.evaluate_fddb',\n"
+        "        'head_detector_tpu_torch.evaluation.evaluate_wider',\n"
+        "        'head_detector_tpu_torch.tools.convert_torch_checkpoint',\n"
+        "        'head_detector_tpu_torch.tools.eval_checkpoint',\n"
+        "        'head_detector_tpu_torch.tools.render_dad_testset',\n"
+        "        'head_detector_tpu_torch.tools.make_fddb_standin',\n"
+        "        'head_detector_tpu_torch.tools.run_protocols', 'chip_smoke']\n"
         "for m in mods: importlib.import_module(m)\n"
+        "ev = importlib.import_module('head_detector_tpu_torch.evaluation')\n"
+        "for name in ev.__all__: getattr(ev, name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "       or m == 'head_detector_tpu' or m.startswith('head_detector_tpu.')]\n"
         "assert not bad, bad\n"

@@ -168,15 +168,57 @@ def test_f16_wire_vertices(checkpoint, scenes):
         make(checkpoint, wire_verts_dtype="bf16")
 
 
-def test_bfloat16_matches_jax():
+BF16_SIZE = 192
+BF16_THRESHOLD = 0.3
+
+
+@pytest.fixture(scope="module")
+def bf16_results():
+    """Each package's detections of three rendered scenes (M checkpoint,
+    192 px) in bfloat16 and in float32: ``__call__`` on the first scene,
+    then ``predict_batch`` on all three."""
+    scenes = [render_scene(11, i, size=BF16_SIZE, max_heads=3, device="cpu")
+              for i in range(3)]
+    kw = dict(model="yolo_heads_m", image_size=BF16_SIZE, checkpoint=M_CHECKPOINT)
+    out = {}
+    # one torch thread: beside the suite's other test processes, a thread
+    # per core oversubscribes the cores (see test_torch_evaluation.py)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for name, det in (("jax_bf16", lambda: JaxHeadDetector(dtype=jnp.bfloat16, **kw)),
+                          ("jax_f32", lambda: JaxHeadDetector(**kw)),
+                          ("port_bf16", lambda: HeadDetector(dtype=torch.bfloat16, device="cpu",
+                                                             **kw)),
+                          ("port_f32", lambda: HeadDetector(device="cpu", **kw))):
+            d = det()
+            out[name] = [d(scenes[0], BF16_THRESHOLD)] + d.predict_batch(scenes, BF16_THRESHOLD)
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+def _match_worst(got, want):
+    """Every detection of ``want`` matched by IoU to its best of ``got``: the
+    worst IoU, the largest score |difference|, and how many have no match of
+    IoU >= 0.5 (detections lost)."""
+    worst = {"iou": 1.0, "score": 0.0, "lost": 0}
+    for g, w in zip(got, want):
+        for hw in w.heads:
+            best = max(g.heads, key=lambda hg: _iou(hg.bbox, hw.bbox), default=None)
+            iou = _iou(best.bbox, hw.bbox) if best is not None else 0.0
+            if iou < 0.5:
+                worst["lost"] += 1
+                continue
+            worst["iou"] = min(worst["iou"], iou)
+            worst["score"] = max(worst["score"], abs(best.score - hw.score))
+    return worst
+
+
+def test_bfloat16_matches_jax(bf16_results):
     """bfloat16 compute in both packages (M checkpoint, 192 px, three
     rendered scenes); every JAX detection matched by IoU."""
-    scenes = [render_scene(11, i, size=192, max_heads=3, device="cpu") for i in range(3)]
-    kw = dict(model="yolo_heads_m", image_size=192, checkpoint=M_CHECKPOINT)
-    want_det = JaxHeadDetector(dtype=jnp.bfloat16, **kw)
-    got_det = HeadDetector(dtype=torch.bfloat16, device="cpu", **kw)
-    want = [want_det(scenes[0], 0.3)] + want_det.predict_batch(scenes, 0.3)
-    got = [got_det(scenes[0], 0.3)] + got_det.predict_batch(scenes, 0.3)
+    got, want = bf16_results["port_bf16"], bf16_results["jax_bf16"]
     worst = {"iou": 1.0, "score": 0.0}
     for g, w in zip(got, want):
         for hw in w.heads:
@@ -186,3 +228,27 @@ def test_bfloat16_matches_jax():
     print("bfloat16, port vs JAX:", worst)
     assert sum(len(w.heads) for w in want) >= 3
     assert worst["iou"] >= 0.962 and worst["score"] <= 2e-2
+
+
+BF16_MARGIN = 5e-3
+
+
+def test_bfloat16_against_own_float32(bf16_results):
+    """Each package's bfloat16 against its own float32 on the scenes of
+    ``test_bfloat16_matches_jax``, every float32 detection matched by IoU to
+    the package's bfloat16 ones.  Measured: the port keeps all 20 float32
+    detections, worst IoU 0.984, score |d| 0.0059; JAX loses 1 of 20 (no
+    bfloat16 box of IoU >= 0.5) and moves another to IoU 0.512 (score |d|
+    0.231).  So the port's bfloat16 is no farther from its float32 than
+    JAX's is from its own: it loses no more detections, and its worst IoU and
+    score |d| are no worse than JAX's by more than BF16_MARGIN.  The 0.981
+    IoU of port against JAX in bfloat16 is bfloat16 noise (the two packages'
+    float32 detectors on these scenes differ by IoU 0.977 already: the
+    reference folds the float16 checkpoint in float16, the port in float32)."""
+    port = _match_worst(bf16_results["port_bf16"], bf16_results["port_f32"])
+    jax_ = _match_worst(bf16_results["jax_bf16"], bf16_results["jax_f32"])
+    print("bfloat16 against own float32: port", port, "JAX", jax_)
+    assert sum(len(r.heads) for r in bf16_results["port_f32"]) >= 3
+    assert port["lost"] <= jax_["lost"]
+    assert port["iou"] >= jax_["iou"] - BF16_MARGIN
+    assert port["score"] <= jax_["score"] + BF16_MARGIN
