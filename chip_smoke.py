@@ -116,9 +116,28 @@ Phases (any failure exits non-zero before the final line):
    (the same tp/fp/fn at every threshold, the same assigner histogram);
    ``test_folder`` and ``head_alignment`` over phase 3's scenes as JPEG (an
    overlay an image, a crop a head);
-11. one ``{"kernels": [...]}`` line (``launches_by_path`` by serving,
-   training, flagship, evaluation and factory), the card's name and power
-   limit, then the last line ``{"ok": true, "device": {...}}``.
+11. export and quantization (yolo_heads_m, the shipped checkpoint, 640 px,
+   batch 8, phase 3's scenes): ``export.build_deploy`` on the card (its
+   weights equal to ``HeadDetector``'s; ``param_count`` before and after
+   fusion); the ``.trcd`` of ``torch_mirror.export_torchscript`` (traced on
+   the CPU, loaded on the card) and ``export_serialized`` /
+   ``load_serialized`` against the eager deploy model on the batch (scores
+   1e-4, boxes 2e-3 + 1e-4 relative, flame 2e-3 + 1e-3 relative) with ms a
+   batch of each beside eager (CUDA events, float32, TF32 off);
+   ``export_onnx`` plain, ``int8``, ``fp16`` and ``pre_nms_top_k=1000``
+   (bytes, nodes), ``run_onnx`` on the card at batch 1 against the eager
+   model (2e-4 of each output's scale); ``ptq`` over 16 batches of 8
+   rendered scenes at percentile 99.99 (seconds), W8, W8A8 and FP16 against
+   float32 at the bars of ``tests/test_quantization.py``, the
+   ``save_quantized`` bytes under 0.45 of float32 and its round trip exact;
+   with the launch counts zeroed, the W8 tree as a msgpack served by
+   ``HeadDetector``, ``predict_batch`` and ``get_pncc`` on the 8 scenes,
+   the card against the CPU at phase 4's bar and the agreement with the
+   float32 detector as a reading; ``analytic_flops``, ``time_fn`` and
+   ``mfu`` of the deploy forward;
+12. one ``{"kernels": [...]}`` line (``launches_by_path`` by serving,
+   training, flagship, evaluation, factory and export), the card's name and
+   power limit, then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is
 False or the port's package is missing.
@@ -192,6 +211,7 @@ FILTER_SIZE = 512  # the teacher loop's detector size (its --image-size default)
 STUDENT = "teacher_student"  # yolo_heads_n, 320 px, batch 16, params wire, 4 GT boxes
 STUDENT_STEPS = 4
 DIAGNOSE_BATCHES = 2  # assigner batches of diagnose_recall, on the card and the CPU
+CALIB_BATCHES = 16  # PTQ calibration batches of BATCH scenes (exportable_mesh_model.py:144-146)
 ROUND_TRIP_PX, ROUND_TRIP_RTOL = 1e-3, 1e-5
 
 HIT_AGREEMENT = 0.999  # the Pallas kernel's bar, tests/test_rasterize_pallas.py
@@ -624,29 +644,43 @@ def phase_profile(detector, scenes):
     profile_window(f"batch {len(scenes)}, detect + PNCC", batch_and_pncc)
 
 
+def card_vs_cpu(got_results, want_results, label: str) -> dict:
+    """The port on the card against the port on the CPU, result by result:
+    box IoU >= 0.99, posed-vertex relative L2 <= 1e-3, PNCC pixels equal on
+    >= 99.9% (phase 4's bar)."""
+    worst_iou, worst_rel, heads, equal, pixels = 1.0, 0.0, 0, 0, 0
+    for got, want in zip(got_results, want_results):
+        if len(got.heads) != len(want.heads):
+            raise AssertionError(f"{label}: card found {len(got.heads)} heads, "
+                                 f"CPU {len(want.heads)}")
+        heads += len(want.heads)
+        for hg, hw in zip(got.heads, want.heads):
+            worst_iou = min(worst_iou, iou_xywh(hg.bbox, hw.bbox))
+            worst_rel = max(worst_rel, float(
+                np.linalg.norm(hg.vertices_3d - hw.vertices_3d) / np.linalg.norm(hw.vertices_3d)
+            ))
+        diff = np.abs(got.get_pncc().astype(int) - want.get_pncc().astype(int)).max(-1)
+        equal += int((diff == 0).sum())
+        pixels += diff.size
+    pncc_agree = equal / pixels
+    log(f"  {label}: heads {heads}: min box IoU {worst_iou:.6f}, max vertex rel L2 "
+        f"{worst_rel:.3e}, PNCC pixels equal: {pncc_agree:.6f}")
+    if not heads:
+        raise AssertionError(f"{label}: no heads to compare")
+    if worst_iou < 0.99 or worst_rel > 1e-3 or pncc_agree < 0.999:
+        raise AssertionError(f"{label}: card and CPU disagree")
+    return {"heads": heads, "min_iou": worst_iou, "max_vertex_rel": worst_rel,
+            "pncc_equal": pncc_agree}
+
+
 def phase_card_vs_cpu(detector_gpu, scene):
     """One scene through the port on the card and on the CPU."""
     from head_detector_tpu_torch.detector import HeadDetector
 
     cpu = HeadDetector(model=MODEL, image_size=IMAGE_SIZE, checkpoint=CHECKPOINT,
                        device="cpu")
-    got = detector_gpu.predict_batch([scene])[0]
-    want = cpu.predict_batch([scene])[0]
-    if len(got.heads) != len(want.heads) or not want.heads:
-        raise AssertionError(f"card found {len(got.heads)} heads, CPU {len(want.heads)}")
-    worst_iou, worst_rel = 1.0, 0.0
-    for hg, hw in zip(got.heads, want.heads):
-        worst_iou = min(worst_iou, iou_xywh(hg.bbox, hw.bbox))
-        worst_rel = max(worst_rel, float(
-            np.linalg.norm(hg.vertices_3d - hw.vertices_3d) / np.linalg.norm(hw.vertices_3d)
-        ))
-    diff = np.abs(got.get_pncc().astype(int) - want.get_pncc().astype(int)).max(-1)
-    pncc_agree = float((diff == 0).mean())
-    log(f"  heads {len(got.heads)}: min box IoU {worst_iou:.6f}, max vertex rel L2 "
-        f"{worst_rel:.3e}, PNCC pixels equal: {pncc_agree:.6f} "
-        f"(within 1: {float((diff <= 1).mean()):.6f})")
-    if worst_iou < 0.99 or worst_rel > 1e-3 or pncc_agree < 0.999:
-        raise AssertionError("card and CPU disagree")
+    card_vs_cpu(detector_gpu.predict_batch([scene]), cpu.predict_batch([scene]),
+                "the shipped checkpoint")
 
 
 def same_detections(got, want, name):
@@ -2068,6 +2102,223 @@ def phase_factory_tools(dev, scenes, root: str, data: str, ckpt_dir: str, split_
     return out
 
 
+def _corr(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(np.corrcoef(a.detach().double().cpu().numpy().ravel(),
+                             b.detach().double().cpu().numpy().ravel())[0, 1])
+
+
+def _close(label: str, got, want, atol: float, rtol: float) -> float:
+    """Largest |got - want| over (atol + rtol * |want|); fails above 1."""
+    ratio = float(((got - want).abs() / (atol + rtol * want.abs())).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"{label}: {ratio:.3f} of the bar")
+    return float((got - want).abs().max())
+
+
+def match_heads(got, want):
+    """(heads of ``want`` matched by a head of ``got`` at IoU >= 0.5, their
+    number, the worst IoU among the matches), over results image by image."""
+    matched, total, worst = 0, 0, 1.0
+    for g, w in zip(got, want):
+        total += len(w.heads)
+        for hw in w.heads:
+            best = max((iou_xywh(hg.bbox, hw.bbox) for hg in g.heads), default=0.0)
+            if best >= 0.5:
+                matched += 1
+                worst = min(worst, best)
+    return matched, total, worst
+
+
+def phase_export(dev, detector, scenes, root: str) -> dict:
+    """Export and quantization at full width (yolo_heads_m, the shipped
+    checkpoint, 640 px, batch 8, phase 3's scenes): fusion, the .trcd and
+    the serialized program against the eager model, the ONNX legs through
+    ``run_onnx`` on the card, PTQ over the reference's calibration (W8, W8A8
+    and FP16 against float32, the int8 artifact), the W8 checkpoint served
+    through ``HeadDetector`` and ``get_pncc`` with the launch counts zeroed
+    (card against CPU), and the FLOPs and MFU of the deploy forward."""
+    from head_detector_tpu_torch import export, onnx_export, profiling, quantization, torch_mirror
+    from head_detector_tpu_torch.detector import HeadDetector
+    from head_detector_tpu_torch.device import exact_float32
+    from head_detector_tpu_torch.models import param_count
+    from head_detector_tpu_torch.ops import rasterize as r
+    from head_detector_tpu_torch.train.dataset import render_scene
+    from head_detector_tpu_torch.weights import load_variables, save_variables
+
+    out: dict = {}
+    variables = load_variables(CHECKPOINT)
+    x = torch.from_numpy(np.stack(scenes)).to(dev).permute(0, 3, 1, 2).float() / 255.0
+
+    # 1. fusion: the tree HeadDetector loads, and param_count before and after
+    t0 = time.perf_counter()
+    model, fused = export.build_deploy(MODEL, variables, device=dev)
+    out["build_deploy_s"] = time.perf_counter() - t0
+    served = detector._model.state_dict()
+    mine = model.state_dict()
+    if served.keys() != mine.keys() or any(not torch.equal(mine[k], served[k]) for k in served):
+        raise AssertionError("build_deploy's weights differ from HeadDetector's")
+    counts = {}
+    for name, tree in (("training", variables), ("fused", fused)):
+        t0 = time.perf_counter()
+        counts[name] = param_count(tree)
+        counts[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    out["param_count"] = counts
+    log(f"  fusion: {len(served)} tensors equal to HeadDetector's; params "
+        f"{counts['training']} -> {counts['fused']} ({counts['training_ms']:.3f} and "
+        f"{counts['fused_ms']:.3f} ms to count)")
+
+    eager = torch_mirror.DecodedOutputs(model).eval()
+    bars = ((2e-3, 1e-4), (1e-4, 0.0), (2e-3, 1e-3))  # boxes, scores, flame
+
+    def forward_ms(fn, arg):
+        with torch.no_grad(), exact_float32():
+            return time_ms(lambda: fn(arg), launches=5, readings=3, warmup=2)[0]
+
+    with torch.no_grad(), exact_float32():
+        want = eager(x)
+
+    # 2. the .trcd (traced on the CPU, loaded on the card) and the serialized program
+    for label in ("trcd", "serialized"):
+        t0 = time.perf_counter()
+        if label == "trcd":
+            loaded = torch_mirror.export_torchscript(
+                MODEL, variables, os.path.join(root, "m.trcd"),
+                image_size=(IMAGE_SIZE, IMAGE_SIZE), device=dev)
+        else:
+            path = os.path.join(root, "m.pt2")
+            export.export_serialized(eager, (x,), path)
+            loaded = export.load_serialized(path)
+        made_s = time.perf_counter() - t0
+        with torch.no_grad(), exact_float32():
+            got = loaded(x)
+        errs = [_close(f"{label} {name}", g, w, *bar)
+                for name, g, w, bar in zip(("boxes", "scores", "flame"), got, want, bars)]
+        out[label] = {"export_s": made_s, "max_abs_err": errs,
+                      "ms": forward_ms(loaded, x), "eager_ms": forward_ms(eager, x)}
+        log(f"  {label}: made in {made_s:.2f} s; against the eager model (boxes, scores, "
+            f"flame) max |d| {errs}; batch {BATCH}: {out[label]['ms']:.3f} ms against eager "
+            f"{out[label]['eager_ms']:.3f} ms")
+
+    # 3. ONNX: the four legs, run_onnx on the card at batch 1
+    out["onnx"] = {}
+    with torch.no_grad(), exact_float32():
+        want1 = eager(x[:1])
+    for leg, kw in (("plain", {}), ("int8", {"quantize": "int8"}), ("fp16", {"quantize": "fp16"}),
+                    ("top1000", {"pre_nms_top_k": 1000})):
+        t0 = time.perf_counter()
+        graph = onnx_export.export_onnx(MODEL, image_size=(IMAGE_SIZE, IMAGE_SIZE),
+                                        model=torch_mirror.decoded_outputs(MODEL, variables), **kw)
+        made_s = time.perf_counter() - t0
+        entry = {"bytes": len(graph.serialize()), "nodes": len(graph.nodes), "export_s": made_s}
+        with torch.no_grad(), exact_float32():
+            got = onnx_export.run_onnx(graph, {"image": x[:1]}, device=dev)
+        if leg == "plain":
+            entry["max_abs_err"] = [
+                _close(f"onnx {name}", g, w, 2e-4 * max(1.0, float(w.abs().max())), 0.0)
+                for name, g, w in zip(("boxes", "scores", "flame"), got, want1)]
+        elif leg == "top1000":
+            scores = want1[1].reshape(-1)
+            top = torch.topk(scores, 1000).values
+            entry["max_abs_err"] = float((got[1].reshape(-1) - top).abs().max())
+            if entry["max_abs_err"] > 2e-4 or tuple(got[0].shape) != (1, 1000, 4):
+                raise AssertionError(f"onnx top-1000: {entry}")
+        else:
+            entry["score_max_abs_diff"] = float((got[1] - want1[1]).abs().max())
+        out["onnx"][leg] = entry
+        log(f"  onnx {leg}: {entry}")
+
+    # 4. PTQ over the reference's calibration: 16 batches of 8 rendered scenes
+    t0 = time.perf_counter()
+    calib = [torch.from_numpy(np.stack([
+        render_scene(SCENE_SEED, BATCH * (b + 1) + i, IMAGE_SIZE, MAX_HEADS, device=dev)
+        for i in range(BATCH)])).to(dev).permute(0, 3, 1, 2).float() / 255.0
+        for b in range(CALIB_BATCHES)]
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with exact_float32():
+        result = quantization.ptq(model, fused, calib, percentile=99.99,
+                                  max_batches=CALIB_BATCHES)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    del calib
+    legs = {
+        "w8": (quantization.quantized_apply(model, result.variables), (0.98, 0.99, 1e-2)),
+        "w8a8": (quantization.quantized_apply(model, result.variables, result.act_scales),
+                 (0.95, 0.97, 2e-2)),
+    }
+    with torch.no_grad(), exact_float32():
+        ref, raw_ref = model(x)
+    quant = {"calibration_s": calib_s, "render_s": render_s, "report": result.report}
+    for name, (fn, (c_cls, c_reg, med)) in legs.items():
+        with exact_float32():
+            dec, raw = fn(x)
+        reading = {"corr_cls": _corr(raw.cls_score_list, raw_ref.cls_score_list),
+                   "corr_dfl": _corr(raw.reg_distri_list, raw_ref.reg_distri_list),
+                   "median_score_d": float((dec.scores - ref.scores).abs().median())}
+        quant[name] = reading
+        log(f"  {name}: {reading}")
+        if not (reading["corr_cls"] > c_cls and reading["corr_dfl"] > c_reg
+                and reading["median_score_d"] < med):
+            raise AssertionError(f"{name} is not close enough to float32: {reading}")
+    with exact_float32():
+        dec, _ = quantization.quantized_apply(model, quantization.fp16_variables(fused))(x)
+    d = (dec.scores - ref.scores).abs().reshape(-1)
+    quant["fp16"] = {"p99_score_d": float(torch.quantile(d, 0.99)),
+                     "median_score_d": float(d.median())}
+    log(f"  fp16: {quant['fp16']}")
+    if not (quant["fp16"]["p99_score_d"] < 5e-2 and quant["fp16"]["median_score_d"] < 1e-3):
+        raise AssertionError(f"fp16 is not close enough to float32: {quant['fp16']}")
+    artifact = os.path.join(root, "m_int8.npz")
+    quant["artifact"] = quantization.save_quantized(artifact, fused)
+    ratio = quant["artifact"]["quantized_bytes"] / quant["artifact"]["f32_bytes"]
+    restored = flatten_tree(quantization.load_quantized(artifact))
+    want_tree = flatten_tree(result.variables)
+    if restored.keys() != want_tree.keys() or any(
+            restored[k].tobytes() != want_tree[k].tobytes() for k in want_tree):
+        raise AssertionError("load_quantized does not give back the W8 tree")
+    log(f"  PTQ: {len(result.act_scales)} activation scales in {calib_s:.2f} s "
+        f"({CALIB_BATCHES} batches of {BATCH}, scenes rendered in {render_s:.2f} s); int8 "
+        f"artifact {quant['artifact']['quantized_bytes']:.0f} of "
+        f"{quant['artifact']['f32_bytes']:.0f} float32 bytes ({ratio:.4f}); round trip exact")
+    if ratio >= 0.45:
+        raise AssertionError(f"the int8 artifact is {ratio:.3f} of the float32 bytes")
+    out["ptq"] = quant
+
+    # 5. the W8 checkpoint served through HeadDetector and get_pncc
+    w8_path = os.path.join(root, "m_w8.msgpack")
+    save_variables(result.variables, w8_path)
+    w8 = HeadDetector(model=MODEL, image_size=IMAGE_SIZE, checkpoint=w8_path, device=dev)
+    r.rasterize_zbuffer_cuda.launches = 0
+    r.pncc_render_cuda.launches = 0
+    torch.cuda.synchronize()
+    got = w8.predict_batch(scenes, confidence_threshold=0.5)
+    for res in got:
+        res.get_pncc()
+    out["launches"] = {"rasterize_zbuffer": r.rasterize_zbuffer_cuda.launches,
+                       "pncc_render": r.pncc_render_cuda.launches}
+    cpu = HeadDetector(model=MODEL, image_size=IMAGE_SIZE, checkpoint=w8_path, device="cpu")
+    out["w8_card_vs_cpu"] = card_vs_cpu(got, cpu.predict_batch(scenes, confidence_threshold=0.5),
+                                        "W8 detector")
+    matched, total, worst = match_heads(got, detector.predict_batch(scenes,
+                                                                    confidence_threshold=0.5))
+    out["w8_vs_float32"] = {"matched": matched, "heads": total, "worst_iou": worst,
+                            "w8_heads": sum(len(g.heads) for g in got)}
+    log(f"  W8 detector: launches {out['launches']}; against float32: {matched} of {total} "
+        f"heads matched at IoU >= 0.5, worst IoU {worst:.4f}")
+
+    # 6. FLOPs and MFU of the deploy forward at batch 8
+    with torch.no_grad(), exact_float32():
+        flops = profiling.analytic_flops(model, x) / BATCH
+        ms, _ = profiling.time_fn(model, x, warmup=2, iters=5)
+    images_per_s = BATCH / (ms / 1e3)
+    out["profile"] = {"flops_per_image": flops, "ms_per_batch": ms, "images_per_s": images_per_s,
+                      "mfu_fp32": profiling.mfu(flops, images_per_s, profiling.H100_FP32_PEAK_FLOPS)}
+    log(f"  deploy forward: {flops:.0f} FLOPs an image, {ms:.3f} ms a batch of {BATCH} "
+        f"(time_fn), MFU against the fp32 data-sheet peak {out['profile']['mfu_fp32']:.4f}")
+    return out
+
+
 def fddb_callback(predictor):
     """The FDDB pass's post-prediction settings, as ``run_protocols`` swaps them in."""
     from head_detector_tpu_torch.post_prediction import YoloHeadsPostPredictionCallback
@@ -2164,7 +2415,11 @@ def main() -> int:
                                            flagship["ckpt_dir"], factory["split_dir"]))
         log("  " + json.dumps({"factory": factory}, default=float))
 
-    log("phase 11: kernels")
+        log("phase 11: export and quantization")
+        exported = phase_export(dev, detector, scenes, root)
+        log("  " + json.dumps({"export": exported}, default=float))
+
+    log("phase 12: kernels")
     entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], renderer_err, standin_err,
                                     factory_err)
     entries[0]["at_renderer"] = at_renderer
@@ -2176,11 +2431,14 @@ def main() -> int:
                                      "training": training["launches"].get(entry["name"], 0),
                                      "flagship": flagship["launches"].get(entry["name"], 0),
                                      "evaluation": evaluation["launches"].get(entry["name"], 0),
-                                     "factory": factory["launches"].get(entry["name"], 0)}
+                                     "factory": factory["launches"].get(entry["name"], 0),
+                                     "export": exported["launches"].get(entry["name"], 0)}
         entry["launches"] = sum(entry["launches_by_path"].values())
-    for path in ("evaluation", "factory"):
-        if entries[0]["launches_by_path"][path] <= 0:
-            raise AssertionError(f"rasterize_zbuffer was not launched on the {path} path")
+    for name, path in (("rasterize_zbuffer", "evaluation"), ("rasterize_zbuffer", "factory"),
+                       ("pncc_render", "export")):
+        entry = next(e for e in entries if e["name"] == name)
+        if entry["launches_by_path"][path] <= 0:
+            raise AssertionError(f"{name} was not launched on the {path} path")
 
     print(json.dumps({"kernels": entries}))
     print(smi)

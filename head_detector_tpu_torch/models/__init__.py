@@ -12,6 +12,7 @@ from head_detector_tpu_torch.models.yolo_heads import (
     build_model,
     calibrate_batch_stats,
     init_model,
+    param_count,
 )
 
 __all__ = [
@@ -22,6 +23,7 @@ __all__ = [
     "build_model",
     "calibrate_batch_stats",
     "init_model",
+    "param_count",
     "DecodedPredictions",
     "RawOutputs",
     "globalize_flame",

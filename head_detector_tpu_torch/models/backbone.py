@@ -16,9 +16,10 @@ from head_detector_tpu_torch.models.presets import ArchCfg
 
 
 class NStageBackbone(nn.Module):
-    def __init__(self, arch: ArchCfg, in_channels: int = 3, cfg: BlockCfg = BlockCfg()):
+    def __init__(self, arch: ArchCfg, in_channels: int = 3, s2d_stem: bool = False,
+                 cfg: BlockCfg = BlockCfg()):
         super().__init__()
-        self.stem = YoloNASStem(in_channels, arch.stem_channels, cfg=cfg)
+        self.stem = YoloNASStem(in_channels, arch.stem_channels, s2d=s2d_stem, cfg=cfg)
         ch = arch.stem_channels
         for i, st in enumerate(arch.stages):
             self.add_module(

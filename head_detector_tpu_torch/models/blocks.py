@@ -114,14 +114,27 @@ class ConvBNAct(nn.Module):
 class QARepVGGBlock(nn.Module):
     """QARepVGG block.  Deploy: one 3x3 conv (+bias) and ReLU.  Training:
     ``relu(post_bn(bn(conv3x3(x)) + alpha * conv1x1(x) [+ x]))``, the
-    identity only when ``use_residual_connection`` and the shapes allow."""
+    identity only when ``use_residual_connection`` and the shapes allow.
+
+    ``s2d`` (deploy, stride 2 only) is the space-to-depth form of the
+    stride-2 conv: a 2x2 space-to-depth with the JAX package's channel order
+    ``(di * 2 + dj) * C + c`` (``pixel_unshuffle`` would give
+    ``c * 4 + di * 2 + dj``), then a 2x2/s1 conv padded by one row and one
+    column at the top and left, whose kernel ``export.s2d_stem_kernel``
+    re-lays from the fused 3x3 one.  The same arithmetic as the dense conv."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  use_act: bool = True, use_residual_connection: bool = True,
-                 use_alpha: bool = False, cfg: BlockCfg = BlockCfg()):
+                 use_alpha: bool = False, s2d: bool = False, cfg: BlockCfg = BlockCfg()):
         super().__init__()
         self.use_act = use_act
         self.deploy = cfg.deploy
+        self.s2d = s2d
+        if s2d:
+            if not (self.deploy and stride == 2):
+                raise ValueError("the space-to-depth form is a deploy stride-2 block")
+            self.rbr_reparam = Conv2d(4 * in_channels, out_channels, 2, 1, bias=True)
+            return
         if self.deploy:
             self.rbr_reparam = Conv2d(in_channels, out_channels, 3, stride, padding=1,
                                       bias=True)
@@ -136,7 +149,11 @@ class QARepVGGBlock(nn.Module):
         self.post_bn = BatchNorm2d(out_channels, eps=cfg.eps, momentum=cfg.momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.deploy:
+        if self.s2d:
+            b, c, h, w = x.shape
+            y = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+            y = self.rbr_reparam(F.pad(y.reshape(b, 4 * c, h // 2, w // 2), (1, 0, 1, 0)))
+        elif self.deploy:
             y = self.rbr_reparam(x)
         else:
             y1 = self.branch_1x1(x)
@@ -212,12 +229,13 @@ class SPP(nn.Module):
 
 
 class YoloNASStem(nn.Module):
-    """Stride-2 QARepVGG stem."""
+    """Stride-2 QARepVGG stem (``s2d``: its space-to-depth deploy form)."""
 
-    def __init__(self, in_channels: int, out_channels: int, cfg: BlockCfg = BlockCfg()):
+    def __init__(self, in_channels: int, out_channels: int, s2d: bool = False,
+                 cfg: BlockCfg = BlockCfg()):
         super().__init__()
         self.conv = QARepVGGBlock(in_channels, out_channels, stride=2,
-                                  use_residual_connection=False, cfg=cfg)
+                                  use_residual_connection=False, s2d=s2d, cfg=cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)

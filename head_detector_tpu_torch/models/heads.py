@@ -9,7 +9,6 @@ wire conventions.
 
 from __future__ import annotations
 
-import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -143,14 +142,13 @@ class YoloHeadsDFLHead(nn.Module):
         return reg_out, cls_out, flame
 
 
-@functools.lru_cache(maxsize=16)
 def make_anchors(
     feat_shapes: Tuple[Tuple[int, int], ...],
     strides: Tuple[int, ...],
     grid_cell_scale: float = 5.0,
     grid_cell_offset: float = 0.5,
 ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, ...], np.ndarray]:
-    """Anchor grids (numpy, cached): anchors [A,4] pixel boxes of size
+    """Anchor grids (numpy): anchors [A,4] pixel boxes of size
     ``grid_cell_scale*stride``, anchor_points [A,2] cell centers in grid
     units (+offset), num_anchors_list, stride_tensor [A,1]."""
     anchors, points, strides_out, counts = [], [], [], []
@@ -200,24 +198,44 @@ class YoloHeadsNDFLHeads(nn.Module):
         super().__init__()
         self.arch = arch
         self.defer_globalization = defer_globalization
+        self._constants_cache = {}
         for i, (ch, hcfg) in enumerate(zip(in_channels, arch.heads)):
             self.add_module(
                 f"head{i + 1}",
                 YoloHeadsDFLHead(ch, hcfg, skip_flame=skip_flame, cfg=cfg),
             )
 
+    def _constants(self, feat_shapes: Tuple[Tuple[int, int], ...], device: torch.device):
+        """(anchors [A,4], anchor_points [A,2] in grid units, num_anchors_list,
+        stride_tensor [A,1], DFL bins [reg_max+1]) for these feature shapes on
+        ``device``, made once.  A trace of a model that has run at its size
+        holds them as plain constants, which ``torch.jit.load(map_location=
+        ...)`` moves; tensors made in the traced forward would be pinned to
+        the device it was traced on."""
+        key = (feat_shapes, str(device))
+        if key not in self._constants_cache:
+            arch = self.arch
+            anchors, points, counts, strides = make_anchors(
+                feat_shapes, tuple(h.stride for h in arch.heads), arch.grid_cell_scale,
+                arch.grid_cell_offset)
+            bins = np.arange(arch.reg_max + 1, dtype=np.float32)
+            self._constants_cache[key] = (
+                torch.as_tensor(anchors, device=device), torch.as_tensor(points, device=device),
+                counts, torch.as_tensor(strides, device=device),
+                torch.as_tensor(bins, device=device))
+        return self._constants_cache[key]
+
     def forward(self, feats: Sequence[torch.Tensor]):
         arch = self.arch
         reg_max = arch.reg_max
         b = feats[0].shape[0]
-        dev = feats[0].device
         cls_list: List[torch.Tensor] = []
         reg_list: List[torch.Tensor] = []
         flame_list: List[torch.Tensor] = []
         feat_shapes = []
         for i, feat in enumerate(feats):
             _, _, h, w = feat.shape
-            feat_shapes.append((h, w))
+            feat_shapes.append((int(h), int(w)))  # sizes are tensors in a trace
             reg_out, cls_out, flame_out = getattr(self, f"head{i + 1}")(feat)
 
             def rows(t):
@@ -231,16 +249,10 @@ class YoloHeadsNDFLHeads(nn.Module):
         reg_distri = torch.cat(reg_list, dim=1)  # [B, A, 4*(m+1)]
         flame = torch.cat(flame_list, dim=1)  # [B, A, 413 or 0]
 
-        strides = tuple(h.stride for h in arch.heads)
-        anchors_np, points_np, counts, stride_np = make_anchors(
-            tuple(feat_shapes), strides, arch.grid_cell_scale, arch.grid_cell_offset
-        )
-        anchor_points = torch.as_tensor(points_np, device=dev)  # grid units
-        stride_tensor = torch.as_tensor(stride_np, device=dev)
-
+        anchors, anchor_points, counts, stride_tensor, proj = self._constants(
+            tuple(feat_shapes), feats[0].device)
         a = reg_distri.shape[1]
         dist = reg_distri.reshape(b, a, 4, reg_max + 1).float()
-        proj = torch.arange(reg_max + 1, dtype=torch.float32, device=dev)
         expected = torch.einsum("bakm,m->bak", torch.softmax(dist, dim=-1), proj)
 
         x1y1 = anchor_points[None] - expected[..., :2]
@@ -250,9 +262,12 @@ class YoloHeadsNDFLHeads(nn.Module):
 
         points_px = anchor_points * stride_tensor
         if not self.defer_globalization and flame.shape[-1]:
-            flame = flame.float().clone()
-            flame[..., _TRANSLATION_START : _TRANSLATION_START + 2] += points_px[None]
-            flame[..., _SCALE_INDEX] *= stride_tensor[None, :, 0]
+            # out of place, so that a trace holds no in-place op (onnx_export)
+            t = _TRANSLATION_START
+            flame = flame.float()
+            flame = torch.cat([flame[..., :t], flame[..., t : t + 2] + points_px,
+                               flame[..., t + 2 : _SCALE_INDEX],
+                               flame[..., _SCALE_INDEX:] * stride_tensor], dim=-1)
 
         decoded = DecodedPredictions(
             boxes_xyxy=pred_bboxes, scores=pred_scores, flame_params=flame
@@ -261,7 +276,7 @@ class YoloHeadsNDFLHeads(nn.Module):
             cls_score_list=cls_scores.float(),
             reg_distri_list=reg_distri.float(),
             flame_params=flame,
-            anchors=torch.as_tensor(anchors_np, device=dev),
+            anchors=anchors,
             anchor_points=points_px,
             num_anchors_list=counts,
             stride_tensor=stride_tensor,

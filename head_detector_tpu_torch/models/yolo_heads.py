@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,13 +33,13 @@ _CLS_PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 class YoloHeads(nn.Module):
     def __init__(self, arch: ArchCfg, defer_globalization: bool = False,
                  skip_flame: bool = False, dtype: torch.dtype = torch.float32,
-                 deploy: bool = True):
+                 deploy: bool = True, s2d_stem: bool = False):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
         self.deploy = deploy
         cfg = BlockCfg(eps=arch.bn_eps, momentum=arch.bn_momentum, deploy=deploy)
-        self.backbone = NStageBackbone(arch, cfg=cfg)
+        self.backbone = NStageBackbone(arch, s2d_stem=s2d_stem, cfg=cfg)
         self.neck = YoloNASPANNeckWithC2(arch, self.backbone.out_channels, cfg=cfg)
         self.heads = YoloHeadsNDFLHeads(
             arch, self.neck.out_channels,
@@ -68,15 +69,16 @@ class YoloHeads(nn.Module):
 
 def build_model(name_or_arch, defer_globalization: bool = False,
                 skip_flame: bool = False, dtype: torch.dtype = torch.float32,
-                deploy: bool = True) -> YoloHeads:
+                deploy: bool = True, s2d_stem: bool = False) -> YoloHeads:
     """The model for a preset name or an ``ArchCfg``.  Deploy layout: weights
     from ``weights.state_dict_from_flax`` (``load_state_dict`` rounds the
     convolutions' float32 weights to ``dtype``).  Training layout
     (``deploy=False``): weights from :func:`init_model` or
-    ``weights.train_state_dict_from_flax``."""
+    ``weights.train_state_dict_from_flax``.  ``s2d_stem`` (deploy only): the
+    space-to-depth stem, whose kernel ``export.build_deploy`` re-lays."""
     arch = name_or_arch if isinstance(name_or_arch, ArchCfg) else get_arch(name_or_arch)
     return YoloHeads(arch, defer_globalization=defer_globalization, skip_flame=skip_flame,
-                     dtype=dtype, deploy=deploy)
+                     dtype=dtype, deploy=deploy, s2d_stem=s2d_stem)
 
 
 def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -142,3 +144,13 @@ def init_model(model: YoloHeads, generator: torch.Generator,
         calibrate_batch_stats(model, sample.to(device))
     return model
 
+
+def param_count(variables: dict) -> int:
+    """Number of parameter values of a flax tree (its ``params``, or the
+    tree itself without one), as ``head_detector_tpu.models.param_count``."""
+    def count(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        return int(np.size(tree))
+
+    return count(variables.get("params", variables))

@@ -9,7 +9,11 @@ package, so it runs on a machine with only torch:
 The kernel and the plain version run the same unfused float32 operations,
 so ``rasterize_zbuffer`` is held to the Pallas kernel's bar
 (tests/test_rasterize_pallas.py): hit agreement >= 0.999 and |color| < 1e-4
-on common hits; ``pncc_render`` to equality of every uint8 pixel.
+on common hits; ``pncc_render`` to equality of every uint8 pixel.  The
+export tests at the end hold the ``.trcd`` traced on the CPU and loaded on
+the card against the eager model on the card, the card's percentile against
+``np.percentile`` above 2^24 elements, and ``run_onnx`` on the card against
+the CPU.
 """
 
 import numpy as np
@@ -292,3 +296,73 @@ def test_flame_render_backend_on_card_matches_cpu(cuda_device):
     assert got.shape == want.shape == (1024, 1024, 3) and got.dtype == np.uint8
     assert (got == want).all(-1).mean() >= 0.999
     assert (got != card.draws(caption)[3]).any(-1).any()
+
+
+def _m_variables():
+    import os
+
+    from head_detector_tpu_torch.weights import load_variables
+
+    return load_variables(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "checkpoints", "flagship_ema.msgpack"))
+
+
+def _scenes(size: int, count: int) -> torch.Tensor:
+    from head_detector_tpu_torch.train.dataset import render_scene
+
+    images = np.stack([render_scene(11, i, size=size, max_heads=3, device="cpu")
+                       for i in range(count)])
+    return torch.from_numpy(images).permute(0, 3, 1, 2).float() / 255.0
+
+
+@pytest.mark.cuda
+def test_trcd_traced_on_cpu_runs_on_card(cuda_device, tmp_path):
+    """The .trcd of the M checkpoint, traced on the CPU at 128 px and loaded
+    on the card, against the eager deploy model on the card (batch 2,
+    float32, TF32 off) at the mirror's bars: scores 1e-4, boxes 2e-3 + 1e-4
+    relative, flame 2e-3 + 1e-3 relative."""
+    from head_detector_tpu_torch import torch_mirror
+    from head_detector_tpu_torch.device import exact_float32
+
+    variables = _m_variables()
+    loaded = torch_mirror.export_torchscript("yolo_heads_m", variables,
+                                             str(tmp_path / "m.trcd"), image_size=(128, 128),
+                                             device=cuda_device)
+    eager = torch_mirror.decoded_outputs("yolo_heads_m", variables).to(cuda_device)
+    x = _scenes(128, 2).to(cuda_device)
+    with torch.no_grad(), exact_float32():
+        got, want = loaded(x), eager(x)
+    assert all(g.device.type == "cuda" for g in got)
+    for g, w, (atol, rtol) in zip(got, want, ((2e-3, 1e-4), (1e-4, 0.0), (2e-3, 1e-3))):
+        torch.testing.assert_close(g, w, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_percentile_on_card_matches_numpy_above_2_24(cuda_device):
+    from head_detector_tpu_torch.quantization import abs_percentile
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2**24 + 12345, generator=g, device=cuda_device)
+    want = float(np.percentile(np.abs(x.cpu().numpy()), 99.99))
+    assert abs_percentile(x, 99.99) == pytest.approx(want, rel=1e-6)
+
+
+@pytest.mark.cuda
+def test_run_onnx_on_card_matches_cpu(cuda_device):
+    """The M checkpoint's ONNX graph at 128 px run by the interpreter on the
+    card and on the CPU (float32, TF32 off): scores within 1e-4, boxes
+    within 0.05 px, FLAME within 1e-3 relative (the streaming test's bars)."""
+    from head_detector_tpu_torch import onnx_export, torch_mirror
+    from head_detector_tpu_torch.device import exact_float32
+
+    model = torch_mirror.decoded_outputs("yolo_heads_m", _m_variables())
+    graph = onnx_export.export_onnx("yolo_heads_m", image_size=(128, 128), model=model)
+    x = _scenes(128, 1)
+    with exact_float32():
+        got = onnx_export.run_onnx(graph, {"image": x.to(cuda_device)}, device=cuda_device)
+        want = onnx_export.run_onnx(graph, {"image": x}, device="cpu")
+    assert all(g.device.type == "cuda" for g in got)
+    boxes, scores, flame = [g.cpu() for g in got]
+    torch.testing.assert_close(scores, want[1], atol=1e-4, rtol=0)
+    torch.testing.assert_close(boxes, want[0], atol=0.05, rtol=0)
+    torch.testing.assert_close(flame, want[2], atol=1e-3, rtol=1e-3)
