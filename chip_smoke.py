@@ -163,9 +163,9 @@ Phases (any failure exits non-zero before the final line):
    images at phase 9's bars, and the predictor's float32 outputs on one
    sample within 1e-4 of each output's scale;
 13. one ``{"kernels": [...]}`` line (``launches_by_path`` by serving,
-   training, flagship, evaluation, factory, export, segformer and
-   data_parallel), the card's name and power limit, then the last line
-   ``{"ok": true, "device": {...}}``; printed after phase 14;
+   training, flagship, evaluation, factory, export, segformer,
+   data_parallel and campaign), the card's name and power limit, then the
+   last line ``{"ok": true, "device": {...}}``; printed after phase 14;
 14. data parallel (one process a rank, ``distributed.spawn``), with the
    launch counts zeroed: (a) ``multichip.dryrun_multichip(2,
    backend="gloo")`` with both ranks on the card (yolo_heads_n at 64 px, the
@@ -190,7 +190,29 @@ Phases (any failure exits non-zero before the final line):
    (d) ``StreamingDetector(devices=[cuda:0, cuda:0])`` against one replica
    at phase 6's configuration on 32 of its scenes (``valid`` equal, scores
    within 1e-5, boxes within 1e-3 px, the same meshes within 0.05 + 1e-2
-   relative).
+   relative);
+15. the last modules (in phase 8's temporary directory, after phase 12):
+   (a) the native host library (``head_detector_tpu_torch.native``, built
+   with g++ for this host) must build; ``MeshSaver`` takes its writer, whose
+   files of phase 3's heads are byte-equal to the Python writer's (ms/img
+   of each); ``StreamingDetector``'s host letterbox through it
+   (``HDT_LETTERBOX=native``) equals cv2 on 8 of phase 6's 1024 px scenes
+   at 1024 px and is within 2 counts at 640 px; ``rasterize_zbuffer_native``
+   against the CUDA kernel on the main path's fullest scene at the kernel's
+   bar (hit agreement >= 0.999, |color| < 1e-4 off sliver triangles), its
+   host ms beside the kernel's ``device_ms``; (b) the competitor protocol
+   (``evaluate_external_detector``) on phase 9's FDDB stand-in: a perfect
+   mock scores AP 1.0, and ``HeadDetector`` as a ``detector(image) ->
+   (boxes, scores)`` prints its AP; (c) ``tools/verify_reference_parity
+   --self-test`` at yolo_heads_m, 640 px (its ``.trcd`` run on the card)
+   passes, with its stage diffs, minimum IoU and largest vertex L2; (d)
+   with the launch counts zeroed, ``tools/run_campaign`` renders its own
+   set (64 + 16 scenes at 512 px: the ``campaign`` path's launches) and
+   trains ``flagship_campaign`` from the shipped checkpoint as two
+   one-epoch chunks, the second a resume; ``tools/finish_campaign`` scores
+   the best step and the average of the best 2 and exports them;
+   ``tools/archive_campaign`` archives into the temporary directory and
+   ``tools/campaign_report.py`` parses the archive.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is
 False or the port's package is missing.
@@ -286,6 +308,12 @@ DP_RESUME_REL = 1e-5  # resumed vs uninterrupted parameters, relative L2
 DP_VAL_RTOL = 1e-5  # validate() under two ranks vs one
 HIT_AGREEMENT = 0.999  # the Pallas kernel's bar, tests/test_rasterize_pallas.py
 COLOR_TOL = 1e-4
+CAMPAIGN_TRAIN = 64  # phase 15's campaign set at 512 px, cut from 16,384
+CAMPAIGN_VAL = 16
+CAMPAIGN_AVERAGE = 2
+PARITY_IMAGES = 4
+LETTERBOX_SCENES = 8  # phase 6's first scenes at 1024 px
+LETTERBOX_COUNTS = 2  # native bilinear against cv2's fixed-point weights (tests/test_native.py)
 
 
 def log(msg: str) -> None:
@@ -670,7 +698,7 @@ def phase_main_path(detector, flame_model):
         f"{(t1 - t0) * 1e3 / n:.3f} ms/img, PNCC {(t2 - t1) * 1e3 / n:.3f} ms/img, "
         f"of which upload + kernel + download {(t4 - t3) * 1e3 / n:.3f} ms/img and the "
         f"host remainder {((t2 - t1) - (t4 - t3)) * 1e3 / n:.3f} ms/img")
-    return scenes, launches
+    return scenes, launches, results
 
 
 def profile_window(label, fn):
@@ -2918,6 +2946,273 @@ def phase_data_parallel(dev, flame_model) -> dict:
     return out
 
 
+def native_objs(results, root: str) -> dict:
+    """``MeshSaver`` on phase 3's heads: the native writer against the
+    Python one, byte for byte, in ms an image."""
+    import filecmp
+
+    from head_detector_tpu_torch.detection_result import MeshSaver
+
+    saver = MeshSaver()
+    if saver._native is None:
+        raise AssertionError("MeshSaver did not take the native writer")
+    ms = {"native": 0.0, "python": 0.0}
+    files = 0
+    for i, res in enumerate(results):
+        verts = np.stack([h.vertices_3d for h in res.heads]) if res.heads else np.zeros((0,))
+        paths = {k: [os.path.join(root, f"obj_{k}", f"{i}_{j}.obj") for j in range(len(res.heads))]
+                 for k in ms}
+        for kind, write in (("native", saver.save_many), ("python", saver.save_many_python)):
+            os.makedirs(os.path.join(root, f"obj_{kind}"), exist_ok=True)
+            t0 = time.perf_counter()
+            write(verts, paths[kind])
+            ms[kind] += (time.perf_counter() - t0) * 1e3 / len(results)
+        for a, b in zip(paths["native"], paths["python"]):
+            if not filecmp.cmp(a, b, shallow=False):
+                raise AssertionError(f"native OBJ {a} differs from the Python writer's")
+            files += 1
+    if not files:
+        raise AssertionError("phase 3 gave no heads to write")
+    log(f"  OBJ: {files} files of phase 3's heads byte-equal through both writers; native "
+        f"{ms['native']:.3f} ms/img, Python {ms['python']:.3f} ms/img")
+    return {"obj_files": files, "obj_native_ms_per_img": ms["native"],
+            "obj_python_ms_per_img": ms["python"]}
+
+
+def native_letterbox(flame_model) -> dict:
+    """``StreamingDetector``'s host letterbox through cv2 and through the
+    native library (``HDT_LETTERBOX=native``) on phase 6's scenes: at the
+    stream's 1024 px (its own call, scale 1) and at 640 px."""
+    from head_detector_tpu_torch.pipeline import StreamingDetector
+    from head_detector_tpu_torch.train.dataset import render_scene
+
+    scenes = [render_scene(SCENE_SEED, i, STREAM_SIZE, MAX_HEADS, device=flame_model.device,
+                           flame_model=flame_model) for i in range(LETTERBOX_SCENES)]
+    out = {}
+    for size in (STREAM_SIZE, IMAGE_SIZE):
+        stub = type("Stub", (), {"image_size": size})()
+        got = {}
+        for kind in ("cv2", "native"):
+            os.environ.pop("HDT_LETTERBOX", None)
+            if kind == "native":
+                os.environ["HDT_LETTERBOX"] = "native"
+            StreamingDetector._letterbox_host(stub, scenes[0])
+            t0 = time.perf_counter()
+            got[kind] = [StreamingDetector._letterbox_host(stub, s) for s in scenes]
+            out[f"{kind}_ms_per_img_{size}"] = (time.perf_counter() - t0) * 1e3 / len(scenes)
+        os.environ.pop("HDT_LETTERBOX", None)
+        worst = max(int(np.abs(a[0].astype(int) - b[0].astype(int)).max())
+                    for a, b in zip(got["cv2"], got["native"]))
+        if any(a[1] != b[1] for a, b in zip(got["cv2"], got["native"])):
+            raise AssertionError(f"letterbox scales differ at {size} px")
+        bar = 0 if size == STREAM_SIZE else LETTERBOX_COUNTS
+        if worst > bar:
+            raise AssertionError(f"native letterbox at {size} px is {worst} counts from cv2")
+        out[f"max_counts_{size}"] = worst
+        log(f"  letterbox of {len(scenes)} scenes ({STREAM_SIZE} px) to {size} px: native "
+            f"{'equal to' if worst == 0 else f'within {worst} counts of'} cv2; cv2 "
+            f"{out[f'cv2_ms_per_img_{size}']:.3f} ms/img, native "
+            f"{out[f'native_ms_per_img_{size}']:.3f} ms/img")
+    return out
+
+
+def native_raster(flame_model, kernel_device_ms: float) -> dict:
+    """``rasterize_zbuffer_native`` (host) against the CUDA kernel on the
+    main path's fullest scene, a head at a time: hit agreement and |color| at
+    the kernel's bar, sliver triangles' pixels exempt from the color bound
+    (float32 rounding over sin^2 of a tiny corner angle: the native code
+    contracts to FMAs, the kernel does not; tests/test_torch_native.py)."""
+    from head_detector_tpu_torch import native
+    from head_detector_tpu_torch.ops import rasterize as r
+    from head_detector_tpu_torch.train.dataset import scene_params, scene_tables, scene_vertices
+
+    dev = flame_model.device
+    tris, colors = scene_tables(dev)
+    scenes = [scene_vertices(scene_params(SCENE_SEED, i, IMAGE_SIZE, MAX_HEADS)[0], flame_model)
+              for i in range(BATCH)]
+    fullest = max(scenes, key=lambda v: v.shape[0])
+    canvas, hit = r.rasterize_zbuffer_cuda(fullest, tris, colors, IMAGE_SIZE, IMAGE_SIZE)
+    torch.cuda.synchronize()
+    v_host, t_host, c_host = fullest.cpu().numpy(), tris.cpu().numpy(), colors.cpu().numpy()
+    p = v_host[:, t_host, :2].astype(np.float64)  # [n, F, 3, 2]
+    e0, e1 = p[..., 2, :] - p[..., 0, :], p[..., 1, :] - p[..., 0, :]
+    d00, d11, d01 = (e0 * e0).sum(-1), (e1 * e1).sum(-1), (e0 * e1).sum(-1)
+    sliver = (d00 * d11 - d01 * d01) < 1e-3 * d00 * d11
+    agree, err, exempt_share, sliver_err = 1.0, 0.0, 0.0, 0.0
+    for i in range(v_host.shape[0]):
+        cn, hn = native.rasterize_zbuffer_native(v_host[i], t_host, c_host, IMAGE_SIZE, IMAGE_SIZE)
+        ck, hk = canvas[i].cpu().numpy(), hit[i].cpu().numpy()
+        _, exempt = r.rasterize_zbuffer_plain(fullest[i:i + 1].cpu(),
+                                              tris[torch.as_tensor(sliver[i], device=dev)].cpu(),
+                                              colors.cpu(), IMAGE_SIZE, IMAGE_SIZE)
+        exempt = exempt[0].numpy()
+        both = hn & hk
+        agree = min(agree, float((hn == hk).mean()))
+        d = np.abs(cn - ck).max(-1)
+        err = max(err, float(d[both & ~exempt].max()) if (both & ~exempt).any() else 0.0)
+        sliver_err = max(sliver_err, float(d[both & exempt].max()) if (both & exempt).any()
+                         else 0.0)
+        exempt_share = max(exempt_share, float(exempt[hk].mean()) if hk.any() else 0.0)
+    if agree < HIT_AGREEMENT or err >= COLOR_TOL or exempt_share > 0.01:
+        raise AssertionError(f"native rasterizer against the kernel: hit agreement {agree}, "
+                             f"|color| {err}, sliver share {exempt_share}")
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for i in range(v_host.shape[0]):
+            native.rasterize_zbuffer_native(v_host[i], t_host, c_host, IMAGE_SIZE, IMAGE_SIZE)
+        reps.append((time.perf_counter() - t0) * 1e3)
+    host_ms = float(np.median(reps))
+    log(f"  rasterize_zbuffer_native against the kernel on the fullest scene "
+        f"({v_host.shape[0]} heads, F={t_host.shape[0]}, {IMAGE_SIZE}x{IMAGE_SIZE}): hit "
+        f"agreement {agree:.6f}, max |dcolor| {err:.3g} off slivers ({sliver_err:.3g} on "
+        f"{100 * exempt_share:.3f}% of hit pixels under sliver triangles); host "
+        f"{host_ms:.3f} ms (median of 3) against the kernel's device_ms "
+        f"{kernel_device_ms:.4f}")
+    return {"raster_hit_agreement": agree, "raster_max_color": err,
+            "raster_sliver_color": sliver_err, "raster_sliver_share": exempt_share,
+            "raster_native_host_ms": host_ms, "raster_kernel_device_ms": kernel_device_ms}
+
+
+def phase_last_modules(dev, flame_model, root: str, results, evaluation: dict,
+                       kernel_device_ms: float) -> dict:
+    """Phase 15: the native host library, the competitor protocol, the
+    parity runner and the campaign tools, on the card's machine."""
+    import contextlib
+    import io
+
+    from head_detector_tpu_torch import native
+    from head_detector_tpu_torch.detector import HeadDetector
+    from head_detector_tpu_torch.evaluation.evaluate_competitors import evaluate_external_detector
+    from head_detector_tpu_torch.evaluation.evaluate_fddb import read_fddb_annotations
+    from head_detector_tpu_torch.ops import rasterize as r
+    from head_detector_tpu_torch.tools import (
+        archive_campaign,
+        finish_campaign,
+        run_campaign,
+        verify_reference_parity,
+    )
+
+    out = {}
+    if not native.available():  # built at its first use (MeshSaver, phase 3)
+        raise AssertionError(f"the native host library did not build: {native.build_error()}")
+    log(f"  (a) native library {os.path.relpath(native.library_path(), ROOT)} for host "
+        f"{native.host_key()!r}")
+    out.update(native_objs(results, root))
+    out.update(native_letterbox(flame_model))
+    out.update(native_raster(flame_model, kernel_device_ms))
+
+    fddb = evaluation["fddb_dir"]
+    truth = read_fddb_annotations(fddb)
+    answers = {}
+    for name, boxes in truth.items():
+        image = cv2_rgb(os.path.join(fddb, "images", name))
+        answers[image.tobytes()] = np.asarray(boxes, np.float64).reshape(-1, 4)
+    perfect = evaluate_external_detector(
+        fddb, lambda image: (answers[image.tobytes()], np.full(len(answers[image.tobytes()]), 0.9)))
+    if abs(perfect["AP"] - 1.0) > 1e-6 or abs(perfect["AP50"] - 1.0) > 1e-6:
+        raise AssertionError(f"a perfect mock detector scored {perfect}")
+    det = HeadDetector(model=MODEL, image_size=EVAL_SIZE, checkpoint=CHECKPOINT, device=dev)
+
+    def head_detector(image):
+        heads = det(image, confidence_threshold=0.5).heads
+        boxes = np.array([[h.bbox.x, h.bbox.y, h.bbox.x + h.bbox.w, h.bbox.y + h.bbox.h]
+                          for h in heads], np.float64).reshape(-1, 4)
+        return boxes, np.array([h.score for h in heads], np.float64)
+
+    t0 = time.perf_counter()
+    ours = evaluate_external_detector(fddb, head_detector)
+    fddb_s = time.perf_counter() - t0
+    del det
+    log(f"  (b) competitor protocol on phase 9's FDDB stand-in ({len(truth)} images): a "
+        f"perfect mock scores AP {perfect['AP']:.6f}; HeadDetector ({MODEL}, {EVAL_SIZE} px) "
+        f"as a competitor AP {ours['AP']:.4f}, AP50 {ours['AP50']:.4f} in {fddb_s:.2f} s")
+    out.update(competitor_perfect_ap=perfect["AP"], competitor_head_detector=ours)
+
+    t0 = time.perf_counter()
+    parity = verify_reference_parity.self_test(MODEL, IMAGE_SIZE, PARITY_IMAGES, device=dev,
+                                               work_dir=root, print_fn=lambda *a: None)
+    parity_s = time.perf_counter() - t0
+    for name, rep in (("pth_against_trcd", parity["pth_against_trcd"]),
+                      ("trcd", parity["trcd"])):
+        stages = ", ".join(f"{k} {v:.3g}" for k, v in rep["stage_diffs"].items())
+        log(f"  (c) parity self-test {name} ({rep['layout']} layout, the .trcd on the card): "
+            f"stages (relative) {stages}; min IoU {rep['min_bbox_iou']:.6f}, max vertex L2 "
+            f"{rep['max_vertex_l2']:.3g}, flame |d| {rep['max_flame_diff']:.3g}: "
+            f"{'PASS' if rep['pass'] else 'FAIL'}")
+    if not parity["pass"]:
+        raise AssertionError("the parity self-test failed")
+    log(f"  (c) parity self-test at {MODEL}, {IMAGE_SIZE} px, {PARITY_IMAGES} images: "
+        f"{parity_s:.1f} s")
+    out["parity"] = {k: {m: v[m] for m in ("stage_diffs", "min_bbox_iou", "max_vertex_l2")}
+                     for k, v in parity.items() if k != "pass"}
+
+    data, logs = os.path.join(root, "campaign_data"), os.path.join(root, "campaign_logs")
+    r.rasterize_zbuffer_cuda.launches = 0
+    r.pncc_render_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = run_campaign.run_campaign(
+        FLAGSHIP, logs, data_dir=data, train_count=CAMPAIGN_TRAIN, val_count=CAMPAIGN_VAL,
+        device=str(dev), print_fn=lambda m: log("  " + m),
+        overrides=[f"ckpt_root_dir={os.path.join(root, 'campaign_ckpt')}",
+                   "experiment_name=campaign", f"pretrained_weights={CHECKPOINT}",
+                   "training_hyperparams.max_epochs=2", "training_hyperparams.epochs_per_run=1"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"rasterize_zbuffer": r.rasterize_zbuffer_cuda.launches,
+                "pncc_render": r.pncc_render_cuda.launches}
+    with open(os.path.join(logs, "chunk_1.log")) as f:
+        resumed = "resumed from step" in f.read()
+    if run["stopped"] != "complete" or [c["epochs"] for c in run["chunks"]] != [[0], [1]] \
+            or not resumed or any(c["rc"] for c in run["chunks"]):
+        raise AssertionError(f"run_campaign: {run}")
+    t0 = time.perf_counter()
+    fin = finish_campaign.finish_campaign(run["ckpt_dir"], data, MODEL, FLAGSHIP_SIZE,
+                                          os.path.join(root, "finish"), CAMPAIGN_AVERAGE,
+                                          device=str(dev))
+    finish_s = time.perf_counter() - t0
+    chunk_logs = sorted(os.path.join(logs, f) for f in os.listdir(logs))
+    target = archive_campaign.archive_campaign(
+        run["ckpt_dir"], "campaign_smoke", os.path.join(root, "campaigns"),
+        chunk_logs + [os.path.join(root, "finish", f) for f in os.listdir(
+            os.path.join(root, "finish")) if f.endswith(".log")], print_fn=lambda *a: None)
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import campaign_report
+
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        campaign_report.main(sorted(os.path.join(target, f) for f in os.listdir(target)
+                                    if f.startswith("chunk_")))
+    table = report.getvalue().splitlines()
+    if not table or table[0] != "| Epoch | 0 | 1 |":
+        raise AssertionError(f"campaign_report on the archive: {table}")
+    render = run["rendered"]
+    scenes_s = sum(v["scenes"] for v in render.values()) / sum(v["seconds"]
+                                                               for v in render.values())
+    log(f"  (d) run_campaign: rendered {CAMPAIGN_TRAIN} + {CAMPAIGN_VAL} scenes at "
+        f"{FLAGSHIP_SIZE} px ({scenes_s:.2f} scenes/s), chunks "
+        + ", ".join(f"{c['chunk']}: {c['seconds']:.1f} s (epochs {c['epochs']})"
+                    for c in run["chunks"])
+        + f", {run_s:.1f} s in all; launches {launches}")
+    log(f"  (d) finish: best step {fin['best_step']} KeypointsNME "
+        f"{fin['best']['KeypointsNME']:.4f}, average of the best {CAMPAIGN_AVERAGE} "
+        f"{fin['average']['KeypointsNME']:.4f}, both exported, {finish_s:.1f} s; archive "
+        f"{sorted(os.listdir(target))}; campaign_report: {' '.join(table[2:3])}")
+    if launches["rasterize_zbuffer"] <= 0:
+        raise AssertionError("the campaign path launched no rasterizer kernel")
+    out.update(launches=launches, campaign_s=run_s, finish_s=finish_s,
+               campaign_chunks=run["chunks"], campaign_best=fin["best"],
+               campaign_average=fin["average"], scenes_per_s=scenes_s)
+    return out
+
+
+def cv2_rgb(path: str) -> np.ndarray:
+    import cv2
+
+    return cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+
+
 def fddb_callback(predictor):
     """The FDDB pass's post-prediction settings, as ``run_protocols`` swaps them in."""
     from head_detector_tpu_torch.post_prediction import YoloHeadsPostPredictionCallback
@@ -2973,7 +3268,7 @@ def main() -> int:
                             device=dev)
     log(f"  restored {detector.restored_leaves[0]}/{detector.restored_leaves[1]} leaves, "
         f"detector ready in {time.perf_counter() - t0:.2f} s")
-    scenes, launches = phase_main_path(detector, flame_model)
+    scenes, launches, results = phase_main_path(detector, flame_model)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     try:
@@ -3023,6 +3318,13 @@ def main() -> int:
         segformer = phase_segformer(dev, flame_model, root, flagship["data_dir"], evaluation)
         log("  " + json.dumps({"segformer": segformer}, default=float))
 
+        log("phase 15: the last modules")
+        t0 = time.perf_counter()
+        last = phase_last_modules(dev, flame_model, root, results, evaluation,
+                                  entries[0]["device_ms"])
+        log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+        log("  " + json.dumps({"last_modules": last}, default=float))
+
     log("phase 14: data parallel")
     t0 = time.perf_counter()
     data_parallel = phase_data_parallel(dev, flame_model)
@@ -3045,11 +3347,12 @@ def main() -> int:
                                      "export": exported["launches"].get(entry["name"], 0),
                                      "segformer": segformer["launches"].get(entry["name"], 0),
                                      "data_parallel": data_parallel["launches"].get(
-                                         entry["name"], 0)}
+                                         entry["name"], 0),
+                                     "campaign": last["launches"].get(entry["name"], 0)}
         entry["launches"] = sum(entry["launches_by_path"].values())
     for name, path in (("rasterize_zbuffer", "evaluation"), ("rasterize_zbuffer", "factory"),
                        ("pncc_render", "export"), ("rasterize_zbuffer", "segformer"),
-                       ("rasterize_zbuffer", "data_parallel")):
+                       ("rasterize_zbuffer", "data_parallel"), ("rasterize_zbuffer", "campaign")):
         entry = next(e for e in entries if e["name"] == name)
         if entry["launches_by_path"][path] <= 0:
             raise AssertionError(f"{name} was not launched on the {path} path")

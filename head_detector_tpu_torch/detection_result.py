@@ -2,9 +2,11 @@
 drawings, roll-aligned head crops and OBJ export.
 
 Counterpart of ``head_detector_tpu/detection_result.py``.  PNCC processors
-are shared per device; the mesh saver is shared by all results.  The OBJ
-writer is the Python one (float64 through ``"%.8f"``, 1-based faces, the
-face block rendered once), byte-identical to the reference's.
+are shared per device; the mesh saver is shared by all results.  OBJ files
+(float64 through ``"%.8f"``, 1-based faces, the face block rendered once)
+are written by the native host library's writer where it builds
+(``head_detector_tpu_torch.native``), else by a Python writer; the two are
+byte-identical, and identical to the reference's.
 """
 
 from __future__ import annotations
@@ -46,14 +48,28 @@ class MeshSaver:
     faces as 1-based ``f a b c`` lines (rendered once, shared by every file)."""
 
     def __init__(self) -> None:
-        triangles = load_flame_assets().faces.astype(np.int64) + 1
-        self._faces_block = "".join("f %d %d %d\n" % tuple(face) for face in triangles)
+        from head_detector_tpu_torch import native
+
+        self.triangles = load_flame_assets().faces.astype(np.int64) + 1
+        self._faces_block = "".join("f %d %d %d\n" % tuple(face) for face in self.triangles)
+        self._native = native if native.available() else None
 
     def __call__(self, vertices: np.ndarray, output_path: str) -> None:
         self.save_many(np.asarray(vertices, np.float64)[None], [output_path])
 
     def save_many(self, vertices: np.ndarray, paths: list) -> None:
-        """Write vertices[i] and the face block to paths[i]."""
+        """Write vertices[i] and the face block to paths[i]: the native
+        writer (OpenMP over the meshes, no GIL) where it built."""
+        if not len(paths):
+            return
+        vertices = np.asarray(vertices, np.float64)
+        if self._native is not None:
+            self._native.write_objs_native(vertices, self._faces_block.encode(), list(paths))
+        else:
+            self.save_many_python(vertices, paths)
+
+    def save_many_python(self, vertices: np.ndarray, paths: list) -> None:
+        """The Python writer: one ``%`` expansion a mesh."""
         for verts, path in zip(np.asarray(vertices, np.float64), paths):
             body = ("v %.8f %.8f %.8f\n" * len(verts)) % tuple(verts.ravel())
             with open(path, "w") as f:

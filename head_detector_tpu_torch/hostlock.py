@@ -8,8 +8,9 @@ nothing of the JAX package):
   package sees the other's lock (``HDT_CAMPAIGN_LOCK`` overrides the path),
   for the duration of any training run that is not on the CPU, and removes
   it on exit;
-* a benchmark may record whether its numbers were taken beside a run
-  (``campaign_active``).
+* a benchmark waits a bounded time for the lock to clear
+  (``wait_until_free``), then proceeds and records whether its numbers were
+  taken beside a run.
 
 A lock whose holder is dead is stale: it is ignored and removed.
 """
@@ -17,6 +18,7 @@ A lock whose holder is dead is stale: it is ignored and removed.
 from __future__ import annotations
 
 import os
+import time
 
 DEFAULT_LOCK_PATH = "/tmp/hdt_campaign.lock"
 
@@ -75,3 +77,14 @@ def release() -> None:
         except OSError:
             pass
 
+
+def wait_until_free(max_wait_s: float, poll_s: float = 10.0) -> bool:
+    """Block until no live process holds the lock, up to ``max_wait_s``
+    seconds, polling every ``poll_s``.  Returns True when the lock is still
+    held at the deadline (the caller's numbers are taken beside a run)."""
+    deadline = time.monotonic() + max_wait_s
+    while campaign_active():
+        if time.monotonic() >= deadline:
+            return True
+        time.sleep(poll_s)
+    return False

@@ -9,9 +9,10 @@ over them, and the results are emitted in input order.  By default there is
 one replica, on ``device``.  Per batch:
 
 1. host: worker threads letterbox each image with cv2 INTER_LINEAR (sized
-   ``int(side * scale + 0.5)``, centred, padded with 127) and a producer
-   thread groups them into batches behind a bounded queue; a short last
-   batch is padded with copies of its last image;
+   ``int(side * scale + 0.5)``, centred, padded with 127; the native host
+   library's letterbox under ``HDT_LETTERBOX=native`` or without cv2) and a
+   producer thread groups them into batches behind a bounded queue; a short
+   last batch is padded with copies of its last image;
 2. upload: the batch is copied into a pinned host buffer of a ring of
    ``pipeline_depth + 1`` and from there to the card on a copy stream; the
    compute stream waits on the copy's event.  The next batch is uploaded
@@ -38,14 +39,19 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import itertools
+import os
 import queue
 import threading
 import time
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
-import cv2
 import numpy as np
 import torch
+
+try:
+    import cv2
+except ImportError:  # the native letterbox takes its place
+    cv2 = None
 
 from head_detector_tpu_torch.assets_io import get_indices
 from head_detector_tpu_torch.detector import random_variables
@@ -205,6 +211,10 @@ class StreamingDetector:
 
     def _letterbox_host(self, image: np.ndarray) -> Tuple[np.ndarray, float]:
         s = self.image_size
+        if cv2 is None or os.environ.get("HDT_LETTERBOX") == "native":
+            from head_detector_tpu_torch.native import letterbox_native
+
+            return letterbox_native(image, s)
         h, w = image.shape[:2]
         scale = min(s / h, s / w)
         nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)

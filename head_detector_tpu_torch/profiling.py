@@ -84,7 +84,13 @@ def analytic_flops(fn: Callable, *args) -> float:
     return float(counter.get_total_flops())
 
 
-flops_estimate = analytic_flops
+def flops_estimate(fn: Callable, *args) -> float:
+    """FLOPs of one call of ``fn(*args)``: the counterpart of the JAX
+    package's ``flops_estimate``, which asks XLA's cost analysis of a jitted
+    function and falls back to its jaxpr count.  The port has no compiler's
+    estimate to ask, so this is :func:`analytic_flops`, the counterpart of
+    that jaxpr count (0.0 where ``fn`` runs no matmul or convolution)."""
+    return analytic_flops(fn, *args)
 
 
 def mfu(flops_per_item: float, items_per_sec: float,

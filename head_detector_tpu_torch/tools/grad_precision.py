@@ -45,10 +45,13 @@ def _float64_conv(module, x):
 
 
 def step_gradients(arch, state: Dict[str, torch.Tensor], images, targets, loss_cfg, device,
-                   dtype=torch.float32, float64_convs: Sequence[str] = ()) -> Tuple[dict, dict]:
+                   dtype=torch.float32, float64_convs: Sequence[str] = (),
+                   on_net=None) -> Tuple[dict, dict]:
     """(loss components, {parameter: gradient as float64 on the CPU}) of one
     train-mode step of ``arch`` with ``state`` on ``device``, the network in
-    ``dtype``, the convolutions under ``float64_convs`` in float64."""
+    ``dtype``, the convolutions under ``float64_convs`` in float64;
+    ``on_net(net)`` is called on the built network before the step (to hook
+    its modules)."""
     from head_detector_tpu_torch.device import exact_float32
     from head_detector_tpu_torch.flame import FlameModel
     from head_detector_tpu_torch.models import build_model
@@ -63,6 +66,8 @@ def step_gradients(arch, state: Dict[str, torch.Tensor], images, targets, loss_c
     for name, module in net.named_modules():
         if isinstance(module, Conv2d) and any(name.startswith(s) for s in float64_convs):
             module.forward = _float64_conv.__get__(module)
+    if on_net is not None:
+        on_net(net)
     loss_fn = make_loss_fn(net, FlameModel.from_assets(device=device), loss_cfg)
     with exact_float32():
         total, comps = loss_fn(images_to_device(images, device).to(dtype),
@@ -102,6 +107,34 @@ def compare(grads: Dict[str, dict], bar: float = 1e-3, worst: int = 3) -> dict:
     return out
 
 
+def prepare(arch: str, size: int, steps: int, lr: float, max_steps: int, device):
+    """(weights on the CPU, images, targets, loss settings) of the check: a
+    seeded random init of ``arch`` (BatchNorm calibrated), trained ``steps``
+    bfloat16 steps at ``lr`` on rendered scenes on ``device``, and the batch
+    of the step."""
+    from head_detector_tpu_torch.config import CONFIG_DIR, load_config, run_config_from_dict
+    from head_detector_tpu_torch.flame import FlameModel
+    from head_detector_tpu_torch.models import build_model, init_model
+    from head_detector_tpu_torch.train import trainer as tt
+    from head_detector_tpu_torch.train.dataset import SyntheticHeadsDataset, collate_samples
+
+    name = arch if os.path.exists(os.path.join(CONFIG_DIR, f"{arch}.yaml")) else "yolo_heads_m"
+    loss_cfg = run_config_from_dict(load_config(os.path.join(CONFIG_DIR, f"{name}.yaml"))).loss
+    ds = SyntheticHeadsDataset(image_size=size, length=BATCH * (steps + 1), seed=3,
+                               render=True, device=device)
+    net = init_model(build_model(arch, deploy=False, dtype=torch.bfloat16).to(device),
+                     torch.Generator().manual_seed(0), (size, size))
+    if steps:
+        cfg = tt.TrainConfig(lr_warmup_steps=0, initial_lr=lr, max_steps=max_steps)
+        state = tt.TrainState(net, cfg)
+        step = tt.make_train_step(net, FlameModel.from_assets(device=device), loss_cfg, cfg)
+        for b in range(1, steps + 1):
+            step(state, *collate_samples([ds[b * BATCH + i] for i in range(BATCH)], 30))
+    weights = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    images, targets = collate_samples([ds[i] for i in range(BATCH)], 30)
+    return weights, images, targets, loss_cfg
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="segformer",
@@ -115,30 +148,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from head_detector_tpu_torch.config import CONFIG_DIR, load_config, run_config_from_dict
     from head_detector_tpu_torch.device import resolve_device
-    from head_detector_tpu_torch.flame import FlameModel
-    from head_detector_tpu_torch.models import build_model, init_model
-    from head_detector_tpu_torch.train import trainer as tt
-    from head_detector_tpu_torch.train.dataset import SyntheticHeadsDataset, collate_samples
 
     dev = resolve_device(args.device)
-    name = args.arch if os.path.exists(os.path.join(CONFIG_DIR, f"{args.arch}.yaml")) \
-        else "yolo_heads_m"
-    loss_cfg = run_config_from_dict(load_config(os.path.join(CONFIG_DIR, f"{name}.yaml"))).loss
-    ds = SyntheticHeadsDataset(image_size=args.size, length=BATCH * (args.steps + 1), seed=3,
-                               render=True, device=dev)
-    net = init_model(build_model(args.arch, deploy=False, dtype=torch.bfloat16).to(dev),
-                     torch.Generator().manual_seed(0), (args.size, args.size))
-    if args.steps:
-        cfg = tt.TrainConfig(lr_warmup_steps=0, initial_lr=args.lr, max_steps=args.max_steps)
-        state = tt.TrainState(net, cfg)
-        step = tt.make_train_step(net, FlameModel.from_assets(device=dev), loss_cfg, cfg)
-        for b in range(1, args.steps + 1):
-            step(state, *collate_samples([ds[b * BATCH + i] for i in range(BATCH)], 30))
-    weights = {k: v.detach().cpu() for k, v in net.state_dict().items()}
-    del net
-    images, targets = collate_samples([ds[i] for i in range(BATCH)], 30)
+    weights, images, targets, loss_cfg = prepare(args.arch, args.size, args.steps, args.lr,
+                                                 args.max_steps, dev)
     grads, comps = {}, {}
     for side, where, dtype, f64 in (("card", dev, torch.float32, args.float64_convs),
                                     ("cpu", torch.device("cpu"), torch.float32, ()),

@@ -317,8 +317,10 @@ def test_hostlock_protocol_matches_jax(tmp_path, monkeypatch):
     hostlock.acquire()
     assert open(path).read() == str(os.getpid())
     assert hostlock.campaign_active() and jhostlock.campaign_active()
+    assert hostlock.wait_until_free(0.05, poll_s=0.01) and jhostlock.wait_until_free(0.05, 0.01)
     hostlock.release()
     assert not os.path.exists(path) and not jhostlock.campaign_active()
+    assert not hostlock.wait_until_free(0.05) and not jhostlock.wait_until_free(0.05)
     jhostlock.acquire()  # the reference's lock is read by the port, and released by it
     assert hostlock.campaign_active()
     hostlock.release()
