@@ -227,7 +227,7 @@ Phases (any failure exits non-zero before the final line):
    this alone under the other settings of ``card_probes.SWITCHES``: none
    and each switch by itself; it prints their readings and no result
    line); (c) the jaw tower of
-   ``heads.head1`` (MiT-B5 at 320 px after ``tools/grad_precision``'s 8
+   ``heads.head1`` (MiT-B5 at 160 px after ``tools/grad_precision``'s 8
    steps): each BatchNorm's least train-mode variance against its ``eps``
    on the card, the CPU and in float64; (d) ``card_probes``'s flagship
    steps (``flagship_r4`` on JAX's 5-epoch schedule, yolo_heads_m, batch
@@ -235,10 +235,17 @@ Phases (any failure exits non-zero before the final line):
    on the CPU, on the card from a start one float32 step away, and in
    float64: every loss component of the float32 step on the card no farther
    from float64 than 3x the CPU's (plus 2e-6 of it), finite everywhere;
-   then every module's output and the gradient there, card and CPU against
-   float64, for yolo_heads_m at 128 px, and in each the first module where
-   the card's error exceeds 3x the CPU's (``card_probes layers`` runs the
-   same at 512 px and for MiT-B5).
+   (e) ``card_probes bn-precision``: the model gradient of one float32
+   train-mode step of the shipped yolo_heads_m checkpoint at 128 px, batch
+   4, against the port's float64 on the CPU, on the CPU, on the card and on
+   the card with cuDNN disabled, over the whole model and over the leaves
+   whose exact gradient is not 0 (the exactly-zero ones apart), then the
+   BatchNorm carrying most of the card's error alone (card with cuDNN and
+   without, CPU, float64, the profiler's kernel names): the card's error on
+   the non-zero leaves at most 3x JAX's own float32 error at that state
+   (``card_probes.JAX_F32_ERROR``).  (e) replaced (d)'s ``card_probes
+   layers`` at 128 px, which read the model gradient at a seeded state
+   without a JAX yardstick (``card_probes layers`` still runs it).
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is
 False or the port's package is missing.
@@ -334,7 +341,8 @@ DP_RESUME_REL = 1e-5  # resumed vs uninterrupted parameters, relative L2
 DP_VAL_RTOL = 1e-5  # validate() under two ranks vs one
 FAULTS_CPU_IMAGES = 8  # phase 16 (a): val images scored on the CPU too
 FAULTS_SCORE_GAP = 0.05  # phase 16 (a): card vs CPU scores, bfloat16 (rounding of two devices)
-FAULTS_JAW_SIZE = 320  # phase 16 (c): tools/grad_precision's state (MiT-B5, 8 steps)
+FAULTS_JAW_SIZE = 160  # phase 16 (c): tools/grad_precision's state (MiT-B5, 8 steps), cut
+# from its 320 px to keep the run inside the limit
 FAULTS_STEPS_SIZE = 128  # phase 16 (d): the flagship's steps, cut from 512 px
 FAULTS_BF16_STEPS, FAULTS_F32_STEPS = 1, 1
 # phase 16 (d): of each loss component, float32, card vs float64 (the card read
@@ -350,7 +358,14 @@ LETTERBOX_SCENES = 8  # phase 6's first scenes at 1024 px
 LETTERBOX_COUNTS = 2  # native bilinear against cv2's fixed-point weights (tests/test_native.py)
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's header carries the seconds since the start
+    (the driver's limit is 1,200 s)."""
+    if msg.startswith("phase "):
+        msg = f"{msg} (at {time.perf_counter() - _START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -3302,8 +3317,9 @@ def phase_faults(dev, flagship: dict) -> dict:
     validated EMA model of phase 8's flagship state, four ways; (b) phase 14
     (c)'s cut and resumed two-rank run under the deterministic flags; (c)
     the jaw tower's train-mode BatchNorm variances on the card, the CPU and
-    in float64; (d) the flagship's steps on the card and the CPU, and every
-    module's output and its gradient against float64."""
+    in float64; (d) the flagship's steps on the card and the CPU; (e) the
+    model gradient at the shipped checkpoint against JAX's float32 error, and
+    the worst BatchNorm alone."""
     from head_detector_tpu_torch.tools import card_probes, grad_precision
 
     out = {}
@@ -3378,20 +3394,35 @@ def phase_faults(dev, flagship: dict) -> dict:
             f"{r['components']['card_ulp']['loss']:.6f}; parameters card vs CPU "
             f"{r['groups']['card_vs_cpu']['model']:.3e}, card vs card one ulp away "
             f"{r['groups']['card_vs_card_ulp']['model']:.3e}")
-    layers = {MODEL: card_probes.layers(MODEL, FAULTS_STEPS_SIZE, dev)}
-    for arch, row in layers.items():
-        for leg in ("forward", "backward"):
-            log(f"  (d) {arch}: {leg}: {row[leg]['modules']} module outputs; the first where "
-                f"the card's error is over {card_probes.LAYER_RATIO:g}x the CPU's: "
-                f"{json.dumps(row[leg]['first_over'])}")
-            if not all(np.isfinite(r["card"]) and np.isfinite(r["cpu"])
-                       for r in row[leg]["sampled"]):
-                raise AssertionError(f"phase 16: non-finite {leg} errors of {arch}")
-        log(f"  (d) {arch}: the model's gradient {json.dumps(row['model']['model_rel_l2'])}")
     log(f"  (d) sha256 of the batches {steps['sha256']}; {time.perf_counter() - t0:.1f} s")
     out["flagship_steps"] = {"sha256": steps["sha256"], "first_float32": first}
-    out["layers"] = {arch: {leg: row[leg]["first_over"] for leg in ("forward", "backward")}
-                     for arch, row in layers.items()}
+
+    t0 = time.perf_counter()
+    bn = card_probes.bn_precision(dev)
+    for side, e in bn["errors"].items():
+        log(f"  (e) {side} float32 against float64: model {e['model']:.4e}, non-zero leaves "
+            f"{e['nonzero']:.4e}, the {bn['exact_zero']} exactly-zero leaves "
+            f"{e['zero_over_model']:.3e} of the model's norm; most of the error in "
+            f"{json.dumps(e['worst'][:2])}")
+    alone = bn["batchnorm_alone"]
+    log(f"  (e) {alone['module']} {alone['shape']} alone against float64: " + "; ".join(
+        f"{side} " + " ".join(f"{leg} {alone[side][leg]:.3e}"
+                              for leg in ("y", "grad_x", "grad_w", "grad_b"))
+        + (f" kernels {alone[side]['kernels']}" if "kernels" in alone[side] else "")
+        for side in ("card", "card_native", "cpu")))
+    log(f"  (e) batch sha256 {bn['batch_sha256']}; the card's error on the non-zero leaves "
+        f"is {bn['card_over_jax']:.3f}x JAX's float32 {card_probes.JAX_F32_ERROR:.4e} (bar "
+        f"{card_probes.BN_RATIO:g}x); {time.perf_counter() - t0:.1f} s")
+    if not all(np.isfinite(v) for e in bn["errors"].values()
+               for v in (e["model"], e["nonzero"], e["zero_over_model"])):
+        raise AssertionError("phase 16: non-finite gradient errors at the shipped checkpoint")
+    if not bn["ok"]:
+        raise AssertionError(f"phase 16: the card's float32 gradient is {bn['card_over_jax']:.3f}x "
+                             f"JAX's float32 error from float64 (bar {card_probes.BN_RATIO:g}x)")
+    out["bn_precision"] = {"card_over_jax": bn["card_over_jax"],
+                           **{side: {k: e[k] for k in ("model", "nonzero", "zero_over_model")}
+                              for side, e in bn["errors"].items()},
+                           "batchnorm_alone": alone}
     return out
 
 

@@ -2,7 +2,8 @@
 stem, training that is not deterministic, the validated EMA model of a
 campaign, the flagship's train step on the card against the CPU with every
 module's error against float64, the loss alone against the loss in float64,
-and two campaigns' losses paired by step.
+the model gradient at the shipped checkpoint against JAX's own float32 error
+and BatchNorm's backward alone, and two campaigns' losses paired by step.
 
 ``pose-stem``: the state of ``tools/grad_precision.py --steps 8 --lr 3e-4``
 (MiT-B5 at 320 px), one float32 step (TF32 off) on the card with cuDNN's
@@ -87,6 +88,21 @@ targets); a side whose error is far above the CPU's against float64 is a
 fault of the device's loss, and one that is above it only against the
 float64 runs' loss is the yardstick's shared rounding.
 
+``bn-precision``: the model gradient of one train-mode float32 step of
+the shipped ``yolo_heads_m`` checkpoint (``BN_SIZE`` px, ``BN_BATCH``
+scenes of the flagship renderer made on the CPU from ``BN_SEED`` and kept
+in ``BN_BATCH_FILE``, ``tools/grad_precision.py``'s loss settings) against
+the port's float64 on the CPU: the port's float32 on the CPU, on the card,
+and on the card with cuDNN disabled, over the whole model and over the leaves whose exact
+gradient is not 0 (:func:`exact_zero_leaves` lists the others, from the
+module structure; their norm is reported apart).  Then the train-mode
+BatchNorm that carries most of the card's error alone, on its input and
+output gradient from the card's step: card with cuDNN and without, CPU,
+each against float64, with the profiler's kernel names.  It exits 1 when
+the card's error on the non-zero leaves is over ``BN_RATIO`` times JAX's
+own float32 error at the same state (``JAX_F32_ERROR``, measured on the
+CPU by ``tests/test_torch_bn_precision.py``).
+
 ``losses``: the step logs of two campaigns (``[epoch E step S] loss=...
 cls=... iou=... pose=... verts=...`` lines, a file or every ``*.log`` of a
 directory), paired by step: both trainers log one step's components every
@@ -110,6 +126,7 @@ Usage::
         [--arch segformer --size 320] [--device cpu]
     python -m head_detector_tpu_torch.tools.card_probes loss-precision \
         [--arch segformer --size 320] [--device cpu]
+    python -m head_detector_tpu_torch.tools.card_probes bn-precision [--device cpu]
     python -m head_detector_tpu_torch.tools.card_probes pose-stem \
         [--arch segformer --size 320 --steps 8] [--device cpu]
     python -m head_detector_tpu_torch.tools.card_probes determinism [--device cpu]
@@ -143,6 +160,16 @@ JAW = "heads.head1.flame_jaw_pred"
 # (mixed precision) and protocol threshold, and diagnose_recall's sweep
 VAL_BATCH, MAX_BOXES, VAL_DTYPE, PROTOCOL = 16, 4, torch.bfloat16, 0.5
 THRESHOLDS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7)
+
+
+@contextlib.contextmanager
+def cudnn_enabled(enabled: bool):
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
 
 
 @contextlib.contextmanager
@@ -1061,6 +1088,237 @@ def layer_gradients(arch: str, weights, images, targets, loss_cfg, device) -> di
     return out
 
 
+# bn-precision: the shipped yolo_heads_m checkpoint in train mode, float32,
+# on one params-wire batch of the flagship renderer's scenes made on the CPU
+# (render_bn_batch) and kept in BN_BATCH_FILE
+BN_ARCH, BN_SIZE, BN_BATCH, BN_SEED = "yolo_heads_m", 128, 4, 3
+# JAX's own float32 model gradient at that state against the port's float64,
+# over the leaves that are not exactly zero (relative L2): measured on the
+# CPU by tests/test_torch_bn_precision.py, which holds it to this value; the
+# yardstick of the card, which has no jax
+JAX_F32_ERROR = 2.827136e-4
+BN_RATIO = 3.0  # the bar: the card's error over JAX_F32_ERROR
+BN_BATCH_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bn_precision_batch.npz")
+BN_BATCH_SHA256 = "b6b1942b6ce8332f54f66d3edf80cfef54ca006f5032234d631fb391bf23daa0"
+
+
+def exact_zero_leaves(net) -> list:
+    """The parameters of a training-layout YOLO-NAS network whose exact
+    gradient in a train-mode step is 0, from its module structure: each
+    QARepVGG block's ``branch_3x3_bn.bias`` and ``branch_1x1.bias`` (a
+    constant per channel added before the train-mode ``post_bn``, which
+    subtracts the batch mean of each channel), and each up stage's
+    ``upsample.bias`` where every consumer of the upsampled tensor is a 1x1
+    convolution into a train-mode BatchNorm (a constant per channel stays
+    one through it)."""
+    from head_detector_tpu_torch.models.blocks import QARepVGGBlock, YoloNASUpStage
+
+    out = []
+    for name, m in net.named_modules():
+        if isinstance(m, QARepVGGBlock) and not (m.deploy or m.s2d):
+            out += [f"{name}.branch_3x3_bn.bias", f"{name}.branch_1x1.bias"]
+        elif isinstance(m, YoloNASUpStage):
+            consumers = ((m.reduce_after_concat,) if m.reduce_channels
+                         else (m.blocks.conv1, m.blocks.conv2))
+            if all(c.conv.kernel_size == (1, 1) for c in consumers):
+                out.append(f"{name}.upsample.bias")
+    return out
+
+
+def bn_state() -> Dict[str, torch.Tensor]:
+    """The shipped checkpoint's training-layout state dict, every leaf made
+    float32 (the file's are float16)."""
+    import numpy as np
+
+    from head_detector_tpu_torch import weights
+
+    def f32(tree):
+        return ({k: f32(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else np.asarray(tree, np.float32))
+
+    return weights.train_state_dict_from_flax(f32(weights.load_variables(CHECKPOINT)))[0]
+
+
+def render_bn_batch():
+    """(uint8 images [B, H, W, 3], ``ParamTargets`` of numpy arrays): one
+    params-wire batch of ``BN_BATCH`` scenes at ``BN_SIZE`` px, rendered
+    from ``BN_SEED`` on the CPU.  The arrays depend on the machine's torch
+    and cv2 (the card's machine renders other bytes), so the probe reads
+    them from ``BN_BATCH_FILE``, which this wrote."""
+    with tempfile.TemporaryDirectory() as root:
+        return flagship_batches(root, BN_SIZE, 1, BN_SEED, torch.device("cpu"), BN_BATCH)[0]
+
+
+def write_bn_batch(path: str = BN_BATCH_FILE) -> str:
+    """Render the batch (:func:`render_bn_batch`) into ``path``; its sha256."""
+    import numpy as np
+
+    images, targets = render_bn_batch()
+    np.savez_compressed(path, images=images, **targets._asdict())
+    return batches_digest([(images, targets)])
+
+
+def bn_batch():
+    """The batch of ``BN_BATCH_FILE``: (uint8 images, ``ParamTargets`` of
+    numpy arrays), held to ``BN_BATCH_SHA256``."""
+    import numpy as np
+
+    from head_detector_tpu_torch.train.param_wire import ParamTargets
+
+    with np.load(BN_BATCH_FILE) as f:
+        batch = f["images"], ParamTargets(*(f[k] for k in ParamTargets._fields))
+    digest = batches_digest([batch])
+    if digest != BN_BATCH_SHA256:
+        raise ValueError(f"{BN_BATCH_FILE}: sha256 {digest}, not {BN_BATCH_SHA256}")
+    return batch
+
+
+def bn_loss_cfg():
+    """``tools/grad_precision.py``'s loss settings (the arch's config)."""
+    from head_detector_tpu_torch.config import CONFIG_DIR, load_config, run_config_from_dict
+
+    return run_config_from_dict(load_config(os.path.join(CONFIG_DIR, f"{BN_ARCH}.yaml"))).loss
+
+
+def split_error(got: dict, want: dict, zero) -> dict:
+    """``got``'s gradient against ``want``'s (float64): the relative L2
+    over the whole model, over the leaves that are not exactly zero, the
+    exactly-zero leaves' norm over ``want``'s whole norm, and the leaves
+    that carry most of the error (each leaf's error norm over ``want``'s
+    whole norm, then its own relative L2)."""
+    rest = [n for n in want if n not in zero]
+
+    def flat(g, names):
+        return torch.cat([g[n].reshape(-1) for n in names])
+
+    norm = float(torch.linalg.norm(flat(want, list(want))))
+    share = {n: float(torch.linalg.norm(got[n] - want[n])) / norm for n in rest}
+    return {"model": _rel(flat(got, list(want)), flat(want, list(want))),
+            "nonzero": _rel(flat(got, rest), flat(want, rest)),
+            "zero_over_model": float(torch.linalg.norm(flat(got, zero))) / norm,
+            "worst": [(n, share[n], _rel(got[n], want[n]))
+                      for n in sorted(rest, key=lambda n: -share[n])[:4]]}
+
+
+def _capture_batchnorms(store: dict):
+    """``on_net`` hook: each train-mode BatchNorm's input and output
+    gradient, as detached copies on their device, under its name."""
+    from head_detector_tpu_torch.models.blocks import BatchNorm2d
+
+    def record(name, x, y):
+        store[name] = [x.detach().clone()]
+        y.register_hook(lambda g: store[name].append(g.detach().clone()))
+
+    def hook(net):
+        for name, module in net.named_modules():
+            if isinstance(module, BatchNorm2d):
+                module.register_forward_hook(lambda m, i, o, n=name: record(n, i[0], o))
+    return hook
+
+
+def batchnorm_alone(module, x, g, device, dtype, names=None) -> tuple:
+    """(output, input gradient, weight gradient, bias gradient) of the
+    train-mode BatchNorm ``module`` (the port's ``BatchNorm2d.forward``)
+    of ``x`` with output gradient ``g``, on ``device`` in ``dtype``; the
+    card's kernel names go into ``names``."""
+    import torch.nn.functional as F
+
+    x = x.to(device, dtype).requires_grad_(True)
+    w = module.weight.detach().to(device, dtype).requires_grad_(True)
+    b = module.bias.detach().to(device, dtype).requires_grad_(True)
+    c = x.shape[1]
+    prof = None
+    if names is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+    y = F.batch_norm(x, torch.zeros(c, device=device, dtype=dtype),
+                     torch.ones(c, device=device, dtype=dtype), w, b, True, 1.0, module.eps)
+    grads = torch.autograd.grad(y, (x, w, b), g.to(device, dtype))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        names.extend(sorted({e.key for e in prof.key_averages() if e.device_time_total > 0}))
+    return (y.detach(), *grads)
+
+
+def bn_precision(device) -> dict:
+    """The model gradient of one train-mode float32 step at the shipped
+    checkpoint (``bn_state``, ``bn_batch``, ``bn_loss_cfg``) against the
+    port's float64 on the CPU: the port's float32 on the CPU (``cpu``), on
+    ``device`` (``card``) and on ``device`` with cuDNN disabled
+    (``card_native``), each over the whole model and over the leaves that
+    are not exactly zero (:func:`exact_zero_leaves`, reported apart).
+    Then the train-mode BatchNorm whose parameters carry most of the
+    error on ``device`` alone, on its input and output gradient from that
+    step: on ``device`` with cuDNN and without, on the CPU in float32, each
+    against float64 (the profiler's kernel names on the card).  Last,
+    ``card`` on the non-zero leaves over ``JAX_F32_ERROR``, ``ok`` when
+    that is at most ``BN_RATIO``."""
+    from head_detector_tpu_torch.models import build_model
+
+    cpu = torch.device("cpu")
+    state, (images, targets), loss_cfg = bn_state(), bn_batch(), bn_loss_cfg()
+    zero = exact_zero_leaves(build_model(BN_ARCH, deploy=False))
+    captured: Dict[str, list] = {}
+    comps, grads = {}, {}
+    for side, where, dtype, cudnn in (("float64", cpu, torch.float64, True),
+                                      ("cpu", cpu, torch.float32, True),
+                                      ("card", device, torch.float32, True),
+                                      ("card_native", device, torch.float32, False)):
+        with cudnn_enabled(cudnn):
+            comps[side], grads[side] = gp.step_gradients(
+                BN_ARCH, state, images, targets, loss_cfg, where, dtype,
+                on_net=_capture_batchnorms(captured) if side == "card" else None,
+                loss_dtype=dtype)
+    out = {"batch_sha256": batches_digest([(images, targets)]), "exact_zero": len(zero),
+           "loss": {s: c["loss"] for s, c in comps.items()},
+           "errors": {s: split_error(grads[s], grads["float64"], zero)
+                      for s in ("cpu", "card", "card_native")}}
+    print(f"[card_probes] bn-precision: {BN_ARCH} at {BN_SIZE} px, batch {BN_BATCH}, the "
+          f"shipped checkpoint in train mode, batch sha256 {out['batch_sha256']}; "
+          f"{len(zero)} exactly-zero leaves; losses {json.dumps(out['loss'])}", flush=True)
+    for side, e in out["errors"].items():
+        print(f"[card_probes] bn-precision: {side} against float64: "
+              f"{json.dumps(e, default=str)}", flush=True)
+    # the BatchNorm of the worst parameters on the card, alone
+    from head_detector_tpu_torch.models.blocks import BatchNorm2d
+
+    net = build_model(BN_ARCH, deploy=False)
+    net.load_state_dict(state, strict=True)
+    bns = {n: m for n, m in net.named_modules() if isinstance(m, BatchNorm2d)}
+
+    def error(n):  # the BatchNorm's share of the card's error
+        keys = [f"{n}.{p}" for p in ("weight", "bias") if f"{n}.{p}" not in zero]
+        return sum(float(torch.linalg.norm(grads["card"][k] - grads["float64"][k])) for k in keys)
+
+    worst = max(bns, key=error)
+    x, g = captured[worst]
+    ref = batchnorm_alone(bns[worst], x, g, cpu, torch.float64)
+    alone = {"module": worst, "shape": list(x.shape)}
+    for side, where, cudnn in (("card", device, True), ("card_native", device, False),
+                               ("cpu", cpu, True)):
+        names = [] if where.type == "cuda" else None
+        with cudnn_enabled(cudnn):
+            legs = batchnorm_alone(bns[worst], x, g, where, torch.float32, names)
+        alone[side] = {leg: _rel(a, r) for leg, a, r in zip(("y", "grad_x", "grad_w", "grad_b"),
+                                                           legs, ref)}
+        if names is not None:
+            alone[side]["kernels"] = names
+    out["batchnorm_alone"] = alone
+    print(f"[card_probes] bn-precision: BatchNorm2d alone, {worst}: "
+          f"{json.dumps(alone, default=float)}", flush=True)
+    out["card_over_jax"] = out["errors"]["card"]["nonzero"] / JAX_F32_ERROR
+    out["ok"] = out["card_over_jax"] <= BN_RATIO
+    print(f"[card_probes] bn-precision: the card's error on the non-zero leaves "
+          f"{out['errors']['card']['nonzero']:.4e} is {out['card_over_jax']:.3f}x JAX's "
+          f"float32 {JAX_F32_ERROR:.4e} (bar {BN_RATIO:g}x): "
+          f"{'ok' if out['ok'] else 'OVER'}", flush=True)
+    return out
+
+
 LOG_LINE = re.compile(r"^\[epoch (\d+) step (\d+)\] (.*?)(?: \(|$)")
 LOGGED = ("loss", "cls", "iou", "pose", "verts")
 PAIRED = ("loss", "cls", "iou", "pose", "verts", "rot+dfl")
@@ -1137,7 +1395,8 @@ def losses(args) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("probe", choices=["pose-stem", "determinism", "validation", "losses",
-                                      "flagship-steps", "layers", "loss-precision"])
+                                      "flagship-steps", "layers", "loss-precision",
+                                      "bn-precision"])
     ap.add_argument("--arch", default=None,
                     help="default: segformer (pose-stem), yolo_heads_m (validation, "
                          "flagship-steps)")
@@ -1160,6 +1419,13 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.probe == "losses":
         return losses(args)
+    if args.probe == "bn-precision":
+        from head_detector_tpu_torch.device import resolve_device
+
+        out = bn_precision(resolve_device(args.device))
+        if not out["ok"]:
+            raise SystemExit(1)
+        return out
     if args.probe in ("validation", "flagship-steps"):
         args.arch = args.arch or "yolo_heads_m"
         args.size = args.size or 512

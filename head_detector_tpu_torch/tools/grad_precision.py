@@ -46,17 +46,22 @@ def _float64_conv(module, x):
 
 def step_gradients(arch, state: Dict[str, torch.Tensor], images, targets, loss_cfg, device,
                    dtype=torch.float32, float64_convs: Sequence[str] = (),
-                   on_net=None) -> Tuple[dict, dict]:
+                   on_net=None, loss_dtype=torch.float32) -> Tuple[dict, dict]:
     """(loss components, {parameter: gradient as float64 on the CPU}) of one
     train-mode step of ``arch`` with ``state`` on ``device``, the network in
     ``dtype``, the convolutions under ``float64_convs`` in float64;
     ``on_net(net)`` is called on the built network before the step (to hook
-    its modules)."""
+    its modules).  ``targets``: the five ``Targets`` fields, or a
+    ``ParamTargets`` (the params wire, decoded in the loss); the FLAME model
+    and parameter targets are in ``loss_dtype`` (float64: the loss too)."""
+    import numpy as np
+
     from head_detector_tpu_torch.device import exact_float32
     from head_detector_tpu_torch.flame import FlameModel
     from head_detector_tpu_torch.models import build_model
     from head_detector_tpu_torch.models.blocks import Conv2d
     from head_detector_tpu_torch.train.loss import Targets
+    from head_detector_tpu_torch.train.param_wire import ParamTargets
     from head_detector_tpu_torch.train.trainer import images_to_device, make_loss_fn
 
     net = build_model(arch, deploy=False).to(device)
@@ -68,10 +73,14 @@ def step_gradients(arch, state: Dict[str, torch.Tensor], images, targets, loss_c
             module.forward = _float64_conv.__get__(module)
     if on_net is not None:
         on_net(net)
-    loss_fn = make_loss_fn(net, FlameModel.from_assets(device=device), loss_cfg)
+    if isinstance(targets, ParamTargets):
+        targets = ParamTargets(*(torch.as_tensor(np.asarray(t)).to(device, loss_dtype)
+                                 for t in targets))
+    else:
+        targets = Targets(*targets).to(device)
+    loss_fn = make_loss_fn(net, FlameModel.from_assets(device=device, dtype=loss_dtype), loss_cfg)
     with exact_float32():
-        total, comps = loss_fn(images_to_device(images, device).to(dtype),
-                               Targets(*targets).to(device))
+        total, comps = loss_fn(images_to_device(images, device).to(dtype), targets)
         total.backward()
     return ({k: float(v.detach()) for k, v in comps.items()},
             {n: p.grad.detach().cpu().double() for n, p in net.named_parameters()})

@@ -69,7 +69,10 @@ class _CachedDataset:
 
 def _disk_datasets(ds_cfg, image_size: int):
     # the training readers key their random draws by sample (SampleDraws):
-    # a sample does not depend on the loader thread or the rank
+    # a sample does not depend on the loader thread or the rank.
+    # ``keyed_draws: false`` draws the photometric augmentations from
+    # PhotometricAugs' own shared stream instead, as the JAX reader does
+    # (the conformal draws stay keyed); one rank only, and not reproducible
     from head_detector_tpu_torch.train.dataset import DAD3DHeadsDataset
     from head_detector_tpu_torch.train.transforms import (
         PhotometricAugs,
@@ -78,17 +81,18 @@ def _disk_datasets(ds_cfg, image_size: int):
     )
 
     data_dir = ds_cfg["data_dir"]
+    keyed_draws = bool(ds_cfg.get("keyed_draws", True))
     val_splits = ds_cfg.get("val_splits")
     if ds_cfg.get("params_wire"):
         from head_detector_tpu_torch.train.param_wire import ConformalAugs, RenderedHeadsDataset
 
         train_ds = RenderedHeadsDataset(data_dir, splits=ds_cfg.get("train_splits"),
                                         augs=ConformalAugs(image_size),
-                                        photometric=PhotometricAugs(), keyed_draws=True)
+                                        photometric=PhotometricAugs(), keyed_draws=keyed_draws)
     else:
         train_ds = DAD3DHeadsDataset(data_dir, splits=ds_cfg.get("train_splits"),
                                      transforms=default_train_transforms(image_size),
-                                     photometric=PhotometricAugs(), keyed_draws=True)
+                                     photometric=PhotometricAugs(), keyed_draws=keyed_draws)
     val_ds = (_CachedDataset(DAD3DHeadsDataset(
         data_dir, splits=val_splits, transforms=default_val_transforms(image_size)))
         if val_splits else None)

@@ -444,6 +444,68 @@ def test_build_trainer_with_data_dir(data_dir, tmp_path, monkeypatch, wire):
     assert panel.shape == (2 * SIZE, 2 * SIZE, 3)
 
 
+def _serves(ds, index, n):
+    """``n`` serves of sample ``index`` at epoch 0."""
+    ds.set_epoch(0)
+    return [ds[index] for _ in range(n)]
+
+
+def test_disk_datasets_keyed_draws_switch(data_dir):
+    """``dataset_params.keyed_draws`` (default true) in ``_disk_datasets``:
+    keyed, two serves of one sample at one epoch are bit-equal and the
+    photometric augmentations' own stream is not drawn from; with
+    ``keyed_draws=false`` the photometric draws come from that shared stream
+    (they differ between serves), while the conformal draws stay keyed:
+    params, offsets and boxes equal between serves and equal to the JAX
+    reader's, which draws them so and its photometric ones from its own
+    stream."""
+    from head_detector_tpu.train import param_wire as jpw
+    from head_detector_tpu.train.transforms import PhotometricAugs as JaxPhotometricAugs
+    from head_detector_tpu_torch.train.__main__ import _disk_datasets, _parse
+
+    def datasets(*overrides):
+        _, cfg, _ = _parse(["--config-name", "flagship_campaign",
+                            f"dataset_params.data_dir={data_dir}",
+                            "dataset_params.params_wire=true",
+                            "dataset_params.train_splits=[train]", *overrides])
+        return _disk_datasets(cfg["dataset_params"], SIZE)[0]
+
+    keyed = datasets()
+    assert isinstance(keyed, RenderedHeadsDataset) and keyed.keyed_draws
+    before = keyed.photometric.rng.get_state()[1].copy()
+    for index in range(len(keyed)):
+        first, second = _serves(keyed, index, 2)
+        for field in ("image", "params", "offsets", "bboxes_xywh"):
+            np.testing.assert_array_equal(getattr(first, field), getattr(second, field))
+    np.testing.assert_array_equal(keyed.photometric.rng.get_state()[1], before)
+
+    shared = datasets("dataset_params.keyed_draws=false")
+    assert isinstance(shared, RenderedHeadsDataset) and not shared.keyed_draws
+    shared.photometric.rng = np.random.RandomState(5)
+    ref = jpw.RenderedHeadsDataset(data_dir, splits=["train"], augs=jpw.ConformalAugs(SIZE),
+                                   photometric=JaxPhotometricAugs())
+    ref.set_epoch(0)
+    differ = 0
+    for index in range(len(shared)):
+        serves = _serves(shared, index, 3)
+        want = ref[index]
+        for s in serves:
+            for field in ("params", "offsets", "bboxes_xywh"):
+                np.testing.assert_array_equal(getattr(s, field), getattr(want, field))
+        differ += sum(not np.array_equal(a.image, b.image)
+                      for a, b in zip(serves, serves[1:]))
+    assert differ > 0
+    assert not np.array_equal(shared.photometric.rng.get_state()[1],
+                              np.random.RandomState(5).get_state()[1])
+    # the shared stream decides the images: the same stream, the same serves
+    again = datasets("dataset_params.keyed_draws=false")
+    again.photometric.rng = np.random.RandomState(5)
+    shared.photometric.rng = np.random.RandomState(5)
+    for index in range(len(shared)):
+        np.testing.assert_array_equal(_serves(shared, index, 1)[0].image,
+                                      _serves(again, index, 1)[0].image)
+
+
 def test_dense_dataset_is_thread_safe(data_dir, flames):
     """The dense reader's CPU decode from 4 loader threads gives what one
     thread gives."""
