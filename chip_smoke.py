@@ -36,10 +36,10 @@ Phases (any failure exits non-zero before the final line):
 6. streaming: ``StreamingDetector`` (yolo_heads_m, 1024 px, batch 32,
    bfloat16, ``head`` vertices in bfloat16, decode budget 256) images/s of
    ``run()`` over 64 scenes rendered at 1024 px (counts zeroed before the
-   rendering), of ``throughput(256)`` host-fed and device-fed, the device's
-   busy share in a profiled ``run()``; card against CPU at float32 on a
-   batch of 4 scenes (box IoU >= 0.99, vertex relative L2 <= 1e-3) and card
-   bfloat16 against card float32 on it (box IoU >= 0.95, score |d| <= 2e-2);
+   rendering), the device's busy share in a profiled ``run()``; card
+   against CPU at float32 on a batch of 4 scenes (box IoU >= 0.99, vertex
+   relative L2 <= 1e-3) and card bfloat16 against card float32 on it (box
+   IoU >= 0.95, score |d| <= 2e-2);
 7. training: ``python -m head_detector_tpu_torch.train``'s trainer
    (``build_trainer``: ``--config-name yolo_heads_m dataset_params.render=
    true pretrained_weights=checkpoints/flagship_ema.msgpack``) at 640 px,
@@ -981,7 +981,7 @@ def stream_layers(stream, scenes):
     out = stream._step(slot.dev, slot)
     torch.cuda.synchronize()
     t6 = time.perf_counter()
-    emitted = list(stream._emit([_Pending(out, dev)], [1.0] * len(scenes)))
+    emitted = list(stream._emit([_Pending(out, dev, 0)], [1.0] * len(scenes)))
     t7 = time.perf_counter()
     n = len(emitted)
     log(f"  layers on one batch of {n}: letterbox {(t1 - t0) * 1e3 / n:.3f} ms/img on one "
@@ -1032,10 +1032,6 @@ def phase_streaming(flame_model):
             raise AssertionError("non-finite streamed boxes")
 
     stream_layers(stream, scenes[:STREAM_BATCH])
-    host_ips = stream.throughput(256)
-    device_ips = stream.throughput(256, device_feed=True)
-    log(f"  throughput(256): host-fed {host_ips:.1f} images/s, device-fed {device_ips:.1f} "
-        f"images/s")
     try:
         busy = profile_window(f"run() over {len(scenes)} scenes, batch {STREAM_BATCH}",
                               lambda: list(stream.run(scenes)))
@@ -1069,8 +1065,7 @@ def phase_streaming(flame_model):
         f"{iou16:.6f}, max score |d| {score16:.3g}")
     if matched16 == 0 or iou16 < 0.95 or score16 > 2e-2:
         raise AssertionError("streaming: bfloat16 strays from float32")
-    return {"run_images_per_s": run_ips, "host_fed_images_per_s": host_ips,
-            "device_fed_images_per_s": device_ips, "device_busy_share": busy}
+    return {"run_images_per_s": run_ips, "device_busy_share": busy}
 
 
 def train_argv(ckpt_root: str, device, resume: bool = False) -> list:

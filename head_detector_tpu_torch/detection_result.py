@@ -26,6 +26,7 @@ from head_detector_tpu_torch.draw_utils import (
     draw_pose,
 )
 from head_detector_tpu_torch.head_info import HeadMetadata
+from head_detector_tpu_torch.profiling import span
 from head_detector_tpu_torch.utils import (
     extend_bbox,
     extend_to_rect,
@@ -119,8 +120,10 @@ class PredictionResult:
         return image
 
     def get_pncc(self) -> np.ndarray:
-        """PNCC map of all heads, rendered on the detector's device."""
-        return self.pncc_processor(self.original_image, self.heads)
+        """PNCC map of all heads, rendered on the detector's device (the span
+        ``pncc.render`` under a profiler session)."""
+        with span("pncc.render"):
+            return self.pncc_processor(self.original_image, self.heads)
 
     def get_aligned_heads(self) -> List[np.ndarray]:
         """One square crop per head, the image rotated by the head's roll

@@ -16,7 +16,11 @@ sparse FLAME towers and deferred globalisation.  Per batch the path is:
 
 ``__call__`` is step 1-5 on one image with a budget of ``compact_wire``
 detections, or of ``post_nms_max`` (every NMS survivor) without a compact
-wire, and then returns float32 vertices as the reference does.  Float32
+wire, and then returns float32 vertices as the reference does.  Under a
+profiler session (``profiling.py``) each call records the spans
+``detector.letterbox`` (step 1), ``detector.forward``, ``detector.nms``,
+``detector.decode`` (compaction to the meta rows), ``detector.to_host``
+(the valid rows' reads) and ``detector.build_heads`` once.  Float32
 operations run with TF32 off (see ``device.py``).  Weights load from a flax
 msgpack checkpoint (``checkpoint=`` or ``HDT_CHECKPOINT``) in the training
 or the deploy layout; without one the training-layout model is initialised
@@ -47,6 +51,7 @@ from head_detector_tpu_torch.ops.letterbox import letterbox_batch, letterbox_spe
 from head_detector_tpu_torch.ops.nms import batched_nms, compact_detections
 from head_detector_tpu_torch.ops.rotation import rotation_mats_to_rpy
 from head_detector_tpu_torch.ops.sparse_towers import sparse_flame_rows
+from head_detector_tpu_torch.profiling import span
 from head_detector_tpu_torch.weights import (
     count_leaves,
     flax_from_state_dict,
@@ -175,54 +180,58 @@ class HeadDetector:
         of the top ``m`` slots, the vertices rounded to ``verts_dtype`` on
         the device."""
         with exact_float32():
-            decoded, raw, feats = self._model(
-                images.permute(0, 3, 1, 2).contiguous(), return_feats=True
-            )
-            res = batched_nms(
-                decoded.boxes_xyxy, decoded.scores, decoded.flame_params,
-                confidence_threshold=confidence_threshold,
-                iou_threshold=self._iou_threshold,
-                pre_nms_max=self._pre_nms_max,
-                post_nms_max=self._post_nms_max,
-                fusion_iou=self._fusion_iou,
-                return_neighbors=self._fusion_neighbors,
-            )
-            nb = None
-            if self._fusion_neighbors:
-                res, nb = res
-            cres = compact_detections(res, m)
-            if nb is not None:
-                at = (cres.batch_idx, cres.slot_idx)
-                params = self._fused_rows(feats, decoded.flame_params, raw, nb.anchor_idx[at],
-                                          nb.weights[at], cres.batch_idx)
-            else:
-                rows = self._rows(feats, decoded.flame_params, cres.anchor_idx,
-                                  cres.batch_idx)
-                params = globalize_flame(
-                    rows, cres.anchor_idx, raw.anchor_points, raw.stride_tensor
+            with span("detector.forward"):
+                decoded, raw, feats = self._model(
+                    images.permute(0, 3, 1, 2).contiguous(), return_feats=True
                 )
-            R, verts = fused_project_vertices(self._flame, params, to_2d=False)
+            with span("detector.nms"):
+                res = batched_nms(
+                    decoded.boxes_xyxy, decoded.scores, decoded.flame_params,
+                    confidence_threshold=confidence_threshold,
+                    iou_threshold=self._iou_threshold,
+                    pre_nms_max=self._pre_nms_max,
+                    post_nms_max=self._post_nms_max,
+                    fusion_iou=self._fusion_iou,
+                    return_neighbors=self._fusion_neighbors,
+                )
+            with span("detector.decode"):
+                nb = None
+                if self._fusion_neighbors:
+                    res, nb = res
+                cres = compact_detections(res, m)
+                if nb is not None:
+                    at = (cres.batch_idx, cres.slot_idx)
+                    params = self._fused_rows(feats, decoded.flame_params, raw,
+                                              nb.anchor_idx[at], nb.weights[at], cres.batch_idx)
+                else:
+                    rows = self._rows(feats, decoded.flame_params, cres.anchor_idx,
+                                      cres.batch_idx)
+                    params = globalize_flame(
+                        rows, cres.anchor_idx, raw.anchor_points, raw.stride_tensor
+                    )
+                R, verts = fused_project_vertices(self._flame, params, to_2d=False)
 
-            bi = cres.batch_idx
-            pad = pads[bi]  # [m, 2]
-            scale = scales[bi]  # [m]
-            verts = verts.clone()
-            verts[:, :, 0] -= pad[:, 0:1]
-            verts[:, :, 1] -= pad[:, 1:2]
-            verts = verts / scale[:, None, None]
+                bi = cres.batch_idx
+                pad = pads[bi]  # [m, 2]
+                scale = scales[bi]  # [m]
+                verts = verts.clone()
+                verts[:, :, 0] -= pad[:, 0:1]
+                verts[:, :, 1] -= pad[:, 1:2]
+                verts = verts / scale[:, None, None]
 
-            boxes = torch.clamp(cres.boxes, 0, self._image_size)
-            boxes = boxes - pad.repeat(1, 2)
-            boxes = boxes / scale[:, None]
+                boxes = torch.clamp(cres.boxes, 0, self._image_size)
+                boxes = boxes - pad.repeat(1, 2)
+                boxes = boxes / scale[:, None]
 
-            rpy = rotation_mats_to_rpy(R)
-            meta = torch.cat(
-                [bi.to(torch.float32)[:, None], boxes, cres.scores[:, None],
-                 params, rpy, cres.valid.to(torch.float32)[:, None]], dim=1,
-            )
-            keep = cres.valid.nonzero()[:, 0]
-            verts = verts[keep].to(verts_dtype).cpu().numpy().astype(np.float32)
-            return meta[keep].cpu().numpy(), verts
+                rpy = rotation_mats_to_rpy(R)
+                meta = torch.cat(
+                    [bi.to(torch.float32)[:, None], boxes, cres.scores[:, None],
+                     params, rpy, cres.valid.to(torch.float32)[:, None]], dim=1,
+                )
+            with span("detector.to_host"):
+                keep = cres.valid.nonzero()[:, 0]
+                verts = verts[keep].to(verts_dtype).cpu().numpy().astype(np.float32)
+                return meta[keep].cpu().numpy(), verts
 
     def predict_batch(
         self,
@@ -242,42 +251,40 @@ class HeadDetector:
 
     def _predict(self, images, confidence_threshold: float, m: int,
                  verts_dtype: torch.dtype) -> List[PredictionResult]:
-        originals = [self._convert_image(im) for im in images]
-        b = len(originals)
-        by_shape: Dict[tuple, List[int]] = {}
-        for i, im in enumerate(originals):
-            by_shape.setdefault(im.shape, []).append(i)
-        order, chunks, pads, scales = [], [], [], []
-        for shape, idxs in by_shape.items():
-            stack = np.stack([np.ascontiguousarray(originals[i]) for i in idxs])
-            upload = torch.from_numpy(stack).to(self.device)
-            with exact_float32():
-                chunks.append(letterbox_batch(upload, self._image_size))
-            spec = letterbox_spec(shape[0], shape[1], self._image_size)
-            for i in idxs:
-                order.append(i)
-                pads.append((float(spec.pad_left), float(spec.pad_top)))
-                scales.append(float(spec.scale))
-        imgs = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
-        meta, verts = self._detect(
-            imgs,
-            float(confidence_threshold),
-            torch.tensor(pads, dtype=torch.float32, device=self.device),
-            torch.tensor(scales, dtype=torch.float32, device=self.device),
-            m,
-            verts_dtype,
-        )
+        with span("detector.letterbox"):
+            originals = [self._convert_image(im) for im in images]
+            b = len(originals)
+            by_shape: Dict[tuple, List[int]] = {}
+            for i, im in enumerate(originals):
+                by_shape.setdefault(im.shape, []).append(i)
+            order, chunks, pads, scales = [], [], [], []
+            for shape, idxs in by_shape.items():
+                stack = np.stack([np.ascontiguousarray(originals[i]) for i in idxs])
+                upload = torch.from_numpy(stack).to(self.device)
+                with exact_float32():
+                    chunks.append(letterbox_batch(upload, self._image_size))
+                spec = letterbox_spec(shape[0], shape[1], self._image_size)
+                for i in idxs:
+                    order.append(i)
+                    pads.append((float(spec.pad_left), float(spec.pad_top)))
+                    scales.append(float(spec.scale))
+            imgs = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=0)
+            pads_dev = torch.tensor(pads, dtype=torch.float32, device=self.device)
+            scales_dev = torch.tensor(scales, dtype=torch.float32, device=self.device)
+        meta, verts = self._detect(imgs, float(confidence_threshold), pads_dev, scales_dev, m,
+                                   verts_dtype)
         results = [None] * b
-        for j, i in enumerate(order):  # j = row fed to the model
-            sel = meta[:, 0].astype(np.int32) == j
-            results[i] = PredictionResult(
-                original_image=originals[i],
-                heads=self._build_heads(
-                    meta[sel, _BOX], meta[sel, _SCORE], meta[sel, _PARAMS],
-                    verts[sel], meta[sel, _RPY], scales[j],
-                ),
-                device=self.device,
-            )
+        with span("detector.build_heads"):
+            for j, i in enumerate(order):  # j = row fed to the model
+                sel = meta[:, 0].astype(np.int32) == j
+                results[i] = PredictionResult(
+                    original_image=originals[i],
+                    heads=self._build_heads(
+                        meta[sel, _BOX], meta[sel, _SCORE], meta[sel, _PARAMS],
+                        verts[sel], meta[sel, _RPY], scales[j],
+                    ),
+                    device=self.device,
+                )
         return results
 
     def __call__(

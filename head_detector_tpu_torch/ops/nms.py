@@ -18,6 +18,10 @@ overlaps best, if that IoU is >= ``fusion_iou`` and its score is not above
 the kept box's (it comes at or after the kept box in score order), with its
 score as weight.  A kept box is always its own candidate.  Boxes, scores and
 the detection set are those of plain NMS.
+
+Under a profiler session (``profiling.py``) each :func:`batched_nms` adds 1
+to the counter ``nms.calls`` and each sweep compared on the host (one
+``torch.equal``, a wait on the device) 1 to ``nms.sweeps``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from head_detector_tpu_torch.device import exact_float32
+from head_detector_tpu_torch.profiling import count
 
 
 class NMSResult(NamedTuple):
@@ -82,10 +87,13 @@ def _greedy_suppress(boxes: torch.Tensor, valid: torch.Tensor,
         return valid & ~(suppressing & keep[:, None, :]).any(dim=2)
 
     keep, prev = sweep(valid), valid
+    compared = 0
     for _ in range(k):
+        compared += 1
         if torch.equal(keep, prev):
             break
         keep, prev = sweep(keep), keep
+    count("nms.sweeps", compared)
     return keep
 
 
@@ -107,6 +115,7 @@ def batched_nms(
     weighted mean of its candidates' rows.  ``return_neighbors=n`` returns
     ``(NMSResult, NeighborInfo)`` with ``min(n, k)`` candidates per kept box;
     the truncation is exact when a cluster has at most n candidates."""
+    count("nms.calls")
     if scores.dim() == 3:
         scores = scores[..., 0]
     num_anchors = scores.shape[1]

@@ -32,6 +32,16 @@ the emitted meshes are those of the batch's top ``decode_budget``
 detections, the batch-wide compaction of one device.  The NMS waits
 on the device once per suppression sweep, so the host cannot run further
 ahead than the step being enqueued.
+
+Under a profiler session (``profiling.py``) ``run()`` records, on the
+calling thread, the spans ``pipeline.start`` (once a call),
+``pipeline.feed_wait``, ``pipeline.upload``, ``pipeline.step`` and
+``pipeline.emit`` with its child ``pipeline.emit_wait`` (once a batch, keyed
+by the batch's index; none is open across a ``yield``), and counts each
+batch it takes in ``pipeline.letterbox_images`` and the workers' letterbox
+time of its images in ``pipeline.letterbox_ns`` (the workers time every
+image: they run up to a whole input ahead, so a session may hold a batch
+letterboxed before it began).
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ from head_detector_tpu_torch.flame import FlameModel, fused_project_vertices
 from head_detector_tpu_torch.models import ArchCfg, build_model, get_arch, globalize_flame
 from head_detector_tpu_torch.ops.nms import batched_nms, compact_detections
 from head_detector_tpu_torch.ops.sparse_towers import sparse_flame_rows
+from head_detector_tpu_torch.profiling import count, span
 from head_detector_tpu_torch.weights import count_leaves, load_variables, state_dict_from_flax
 
 
@@ -79,9 +90,10 @@ class _Slot:
 
 
 class _Pending:
-    """A step's outputs on their way to the host."""
+    """A step's outputs on their way to the host, of batch ``batch``."""
 
-    def __init__(self, outputs, device: torch.device):
+    def __init__(self, outputs, device: torch.device, batch: int):
+        self.batch = batch
         boxes, scores, valid, mesh = outputs
         small = [boxes, scores, valid] + (list(mesh[:3]) if mesh is not None else [])
         self.verts = mesh[3] if mesh is not None else None
@@ -224,6 +236,12 @@ class StreamingDetector:
         out[top : top + nh, left : left + nw] = resized
         return out, scale
 
+    def _letterbox_timed(self, image: np.ndarray) -> Tuple[np.ndarray, float, int]:
+        """(canvas, scale, ns the worker spent on it) of ``_letterbox_host``."""
+        t0 = time.perf_counter_ns()
+        canvas, scale = self._letterbox_host(image)
+        return canvas, scale, time.perf_counter_ns() - t0
+
     def _upload(self, slot: _Slot, canvases: List[np.ndarray], copy_stream) -> None:
         """Fill ``slot`` with its rows of a batch (``canvases``, already
         padded) and enqueue their copy to the device."""
@@ -257,14 +275,16 @@ class StreamingDetector:
             try:
                 batch: List[np.ndarray] = []
                 metas: List[float] = []
-                for canvas, scale in pool.map(self._letterbox_host, images):
+                ns = 0  # the workers' letterbox time of the batch
+                for canvas, scale, took in pool.map(self._letterbox_timed, images):
                     batch.append(canvas)
                     metas.append(scale)
+                    ns += took
                     if len(batch) == self.batch_size:
-                        if not put((batch, metas)):
+                        if not put((batch, metas, ns)):
                             return
-                        batch, metas = [], []
-                if batch and not put((batch, metas)):
+                        batch, metas, ns = [], [], 0
+                if batch and not put((batch, metas, ns)):
                     return
                 put(None)
             except Exception as exc:  # handed to the consumer, which raises it
@@ -272,36 +292,48 @@ class StreamingDetector:
             finally:
                 pool.shutdown(cancel_futures=True)
 
-        thread = threading.Thread(target=producer, daemon=True)
-        thread.start()
-        shape = (self.rows, self.image_size, self.image_size, 3)
-        rings = [[_Slot(shape, r.device) for _ in range(self.pipeline_depth + 1)]
-                 for r in self.replicas]
-        copy_streams = [torch.cuda.Stream(r.device) if r.device.type == "cuda" else None
-                        for r in self.replicas]
+        with span("pipeline.start"):
+            thread = threading.Thread(target=producer, daemon=True)
+            thread.start()
+            shape = (self.rows, self.image_size, self.image_size, 3)
+            rings = [[_Slot(shape, r.device) for _ in range(self.pipeline_depth + 1)]
+                     for r in self.replicas]
+            copy_streams = [torch.cuda.Stream(r.device) if r.device.type == "cuda" else None
+                            for r in self.replicas]
         pending: "collections.deque[tuple]" = collections.deque()
-        staged = None  # (slots, metas) uploaded, steps not yet enqueued
+        staged = None  # (slots, metas) of batch t - 1 uploaded, steps not yet enqueued
         try:
             for t in itertools.count():
-                item = q.get()
+                with span("pipeline.feed_wait", t):
+                    item = q.get()
                 if isinstance(item, Exception):
                     raise item
                 nxt = None
                 if item is not None:
-                    canvases, metas = item
+                    canvases, metas, letterbox_ns = item
+                    count("pipeline.letterbox_images", len(canvases))
+                    count("pipeline.letterbox_ns", letterbox_ns)
                     padded = [canvases[min(i, len(canvases) - 1)]
                               for i in range(self.batch_size)]
                     slots = [ring[t % len(ring)] for ring in rings]
-                    for k, (slot, stream) in enumerate(zip(slots, copy_streams)):
-                        self._upload(slot, padded[k * self.rows:(k + 1) * self.rows], stream)
+                    with span("pipeline.upload", t):
+                        for k, (slot, stream) in enumerate(zip(slots, copy_streams)):
+                            self._upload(slot, padded[k * self.rows:(k + 1) * self.rows],
+                                         stream)
+                        # free the batch's canvases inside the span: after a run's
+                        # last batch, its letterbox workers gone, that took 54 ms
+                        # on an H100 host
+                        item = canvases = padded = None
                     nxt = (slots, metas)
                 if staged is not None:
                     slots, metas = staged
                     outs = []
-                    for rep, slot in zip(self.replicas, slots):
-                        if slot.copied is not None:
-                            torch.cuda.current_stream(rep.device).wait_event(slot.copied)
-                        outs.append(_Pending(self._step(slot.dev, slot, rep), rep.device))
+                    with span("pipeline.step", t - 1):
+                        for rep, slot in zip(self.replicas, slots):
+                            if slot.copied is not None:
+                                torch.cuda.current_stream(rep.device).wait_event(slot.copied)
+                            outs.append(_Pending(self._step(slot.dev, slot, rep), rep.device,
+                                                 t - 1))
                     pending.append((outs, metas))
                     if len(pending) >= self.pipeline_depth:
                         yield from self._emit(*pending.popleft())
@@ -315,23 +347,29 @@ class StreamingDetector:
             thread.join()
 
     def _emit(self, outs: List[_Pending], metas: List[float]) -> Iterator[dict]:
-        arrays = [out.numpy() for out in outs]
-        kept = self._decoded_rows(arrays) if outs[0].verts is not None else None
-        for i, scale in enumerate(metas):
-            k, local = divmod(i, self.rows)
-            boxes, scores, valid = arrays[k][:3]
-            vertices = None
-            if kept is not None:
-                batch_idx, slot_idx = arrays[k][3:5]
-                rows = np.flatnonzero(kept[k] & (batch_idx == local))
-                vertices = {int(slot_idx[j]): outs[k].verts[j] for j in rows}
-            yield {
-                "boxes_xyxy": boxes[local],
-                "scores": scores[local],
-                "valid": valid[local],
-                "vertices": vertices,
-                "scale": scale,
-            }
+        """The dicts of a batch, all built before the first is yielded."""
+        emitted = []
+        b = outs[0].batch
+        with span("pipeline.emit", b):
+            with span("pipeline.emit_wait", b):
+                arrays = [out.numpy() for out in outs]
+            kept = self._decoded_rows(arrays) if outs[0].verts is not None else None
+            for i, scale in enumerate(metas):
+                k, local = divmod(i, self.rows)
+                boxes, scores, valid = arrays[k][:3]
+                vertices = None
+                if kept is not None:
+                    batch_idx, slot_idx = arrays[k][3:5]
+                    rows = np.flatnonzero(kept[k] & (batch_idx == local))
+                    vertices = {int(slot_idx[j]): outs[k].verts[j] for j in rows}
+                emitted.append({
+                    "boxes_xyxy": boxes[local],
+                    "scores": scores[local],
+                    "valid": valid[local],
+                    "vertices": vertices,
+                    "scale": scale,
+                })
+        yield from emitted
 
     def _decoded_rows(self, arrays: List[List[np.ndarray]]) -> List[np.ndarray]:
         """Which compacted rows of each replica to emit: its valid ones, and
@@ -351,46 +389,3 @@ class StreamingDetector:
         for *_, k, j in sorted(cand)[self.decode_budget:]:
             kept[k][j] = False
         return kept
-
-    def throughput(
-        self,
-        num_images: int = 256,
-        warmup_batches: int = 2,
-        device_feed: bool = False,
-    ) -> float:
-        """Images per second on seeded random images of ``image_size``.
-
-        ``device_feed=True`` times the step alone, back to back on one uint8
-        batch already on the device (no letterbox, no upload)."""
-        rng = np.random.RandomState(0)
-        if device_feed:
-            batch = rng.randint(
-                0, 255, (self.batch_size, self.image_size, self.image_size, 3), np.uint8)
-            parts = [torch.as_tensor(batch[k * self.rows:(k + 1) * self.rows], device=r.device)
-                     for k, r in enumerate(self.replicas)]
-            n_batches = max(1, num_images // self.batch_size)
-            for _ in range(max(warmup_batches, 1)):
-                for rep, part in zip(self.replicas, parts):
-                    self._step(part, replica=rep)
-            self._synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n_batches):
-                for rep, part in zip(self.replicas, parts):
-                    self._step(part, replica=rep)
-            self._synchronize()
-            return n_batches * self.batch_size / (time.perf_counter() - t0)
-
-        imgs = [
-            rng.randint(0, 255, (self.image_size, self.image_size, 3), np.uint8)
-            for _ in range(num_images)
-        ]
-        for _ in zip(range(warmup_batches * self.batch_size), self.run(imgs)):
-            pass
-        t0 = time.perf_counter()
-        n = sum(1 for _ in self.run(imgs))
-        return n / (time.perf_counter() - t0)
-
-    def _synchronize(self) -> None:
-        for rep in self.replicas:
-            if rep.device.type == "cuda":
-                torch.cuda.synchronize(rep.device)

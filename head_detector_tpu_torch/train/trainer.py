@@ -23,6 +23,12 @@ Counterpart of ``head_detector_tpu/train/trainer.py`` on one device:
 
 Float32 products and convolutions run with TF32 off (``device.py``).
 
+Under a profiler session (``profiling.py``) a step records the span
+``trainer.step``, keyed by the steps taken before it, around its children
+``trainer.inputs`` (device copies, learning rate, ``zero_grad``),
+``trainer.forward_loss``, ``trainer.backward``, ``trainer.optimizer``
+(all-reduce, clip, AdamW) and ``trainer.ema``.
+
 Data parallelism (``group``, one process a rank, ``distributed.py``): every
 rank holds its rows of the global batch and the step computes the same
 function of the global batch as the one-device step, as the JAX step jitted
@@ -54,6 +60,7 @@ from head_detector_tpu_torch.distributed import all_reduce_flat_, broadcast_
 from head_detector_tpu_torch.flame import FlameModel
 from head_detector_tpu_torch.models.blocks import set_process_group
 from head_detector_tpu_torch.models.yolo_heads import YoloHeads
+from head_detector_tpu_torch.profiling import span
 from head_detector_tpu_torch.train.loss import LossConfig, Targets, yolo_heads_loss
 from head_detector_tpu_torch.train.param_wire import ParamTargets, decode_param_targets
 
@@ -229,31 +236,42 @@ def make_train_step(model: YoloHeads, flame_model: FlameModel, loss_cfg: LossCon
         set_process_group(model, group)
     loss_fn = make_loss_fn(model, flame_model, loss_cfg, group)
 
-    def train_step(state: TrainState, images, targets):
-        dev = next(model.parameters()).device
-        x = images_to_device(images, dev)
-        targets = (targets.to(dev) if isinstance(targets, ParamTargets)
-                   else Targets(*targets).to(dev))
-        lr = state.schedule(state.step)
-        for param_group in state.optimizer.param_groups:
-            param_group["lr"] = lr
-        state.optimizer.zero_grad(set_to_none=True)
+    def step(state: TrainState, images, targets):
+        key = state.step
+        with span("trainer.inputs", key):
+            dev = next(model.parameters()).device
+            x = images_to_device(images, dev)
+            targets = (targets.to(dev) if isinstance(targets, ParamTargets)
+                       else Targets(*targets).to(dev))
+            lr = state.schedule(state.step)
+            for param_group in state.optimizer.param_groups:
+                param_group["lr"] = lr
+            state.optimizer.zero_grad(set_to_none=True)
         with exact_float32():
-            total, components = loss_fn(x, targets)
-            total.backward()
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            all_reduce_flat_(grads, group)
-            if train_cfg.grad_clip_norm:
-                state.grad_norm = clip_by_global_norm_(grads, train_cfg.grad_clip_norm)
-            state.optimizer.step()
-            state.step += 1
+            with span("trainer.forward_loss", key):
+                total, components = loss_fn(x, targets)
+            with span("trainer.backward", key):
+                total.backward()
+            with span("trainer.optimizer", key):
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+                all_reduce_flat_(grads, group)
+                if train_cfg.grad_clip_norm:
+                    state.grad_norm = clip_by_global_norm_(grads, train_cfg.grad_clip_norm)
+                state.optimizer.step()
+                state.step += 1
             if train_cfg.ema:
-                d = _ema_decay(state.step, train_cfg)
-                names, params = zip(*model.named_parameters())
-                ema = [state.ema[n] for n in names]
-                torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, [p.detach() for p in params],
-                                    alpha=float(np.float32(1) - np.float32(d)))
+                with span("trainer.ema", key):
+                    d = _ema_decay(state.step, train_cfg)
+                    names, params = zip(*model.named_parameters())
+                    ema = [state.ema[n] for n in names]
+                    torch._foreach_mul_(ema, d)
+                    torch._foreach_add_(ema, [p.detach() for p in params],
+                                        alpha=float(np.float32(1) - np.float32(d)))
         return state, {k: v.detach() for k, v in components.items()}
+
+    def train_step(state: TrainState, images, targets):
+        # the step's locals (the loss and its graph) are freed inside the span
+        with span("trainer.step", state.step):
+            return step(state, images, targets)
 
     return train_step

@@ -3,7 +3,7 @@ JAX package's count (2 x MACs of matmuls and convolutions, a transposed
 convolution counted over its output positions as JAX's lhs-dilated
 convolution counts it) on the yolo_heads_n deploy forward at 64 px
 (370,115,168), a grouped conv, a transposed conv, a matmul and an
-elementwise-only function; ``time_fn``, ``trace`` / ``annotate`` and
+elementwise-only function; ``time_fn``, ``trace`` / ``span`` and
 ``mfu`` run on the CPU."""
 
 import json
@@ -88,11 +88,12 @@ def test_time_fn_trace_annotate_mfu_on_cpu(tmp_path):
     assert ms > 0.0 and len(calls) == 7
     torch.testing.assert_close(out, x @ x)
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("matmul_region"):
+        with profiling.span("matmul_region"):
             fn(x)
     with open(os.path.join(tmp_path, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "matmul_region" for e in events)
+    assert profiling.snapshot()["spans"]["matmul_region"]["count"] == 1
     assert profiling.mfu(1e9, 100.0, peak_flops=1e12) == pytest.approx(0.1)
     assert profiling.mfu(0.0, 100.0) == 0.0
     assert profiling.H100_BF16_PEAK_FLOPS == 989.4e12
