@@ -955,22 +955,22 @@ def match_streams(got, want):
 
 
 def stream_layers(stream, scenes):
-    """The streaming layers one at a time on one batch: host letterbox (one
-    thread), the copy into a pinned buffer and on to the card, the step
-    (forward, NMS, mesh decode), the download and emission."""
-    from head_detector_tpu_torch.pipeline import _Pending, _Slot
+    """The streaming layers one at a time on one batch: the host letterbox
+    straight into a pinned slot's rows (one thread), the slot's copy to the
+    card, the step (forward, NMS, mesh decode), the download and emission."""
+    from head_detector_tpu_torch.pipeline import _Pending, _Slot, letterbox_into
 
     dev = stream.device
-    canvases = [stream._letterbox_host(im)[0] for im in scenes]
+    slot = _Slot((len(scenes), stream.image_size, stream.image_size, 3), dev)
+    scales = [letterbox_into(im, row) for im, row in zip(scenes, slot.rows)]
     t0 = time.perf_counter()
-    canvases = [stream._letterbox_host(im)[0] for im in scenes]
+    scales = [letterbox_into(im, row) for im, row in zip(scenes, slot.rows)]
     t1 = time.perf_counter()
-    slot = _Slot((len(scenes),) + canvases[0].shape, dev)
     copy_stream = torch.cuda.Stream(dev)
-    stream._upload(slot, canvases, copy_stream)
+    stream._upload(slot, copy_stream)
     slot.copied.synchronize()
     t2 = time.perf_counter()
-    stream._upload(slot, canvases, copy_stream)
+    stream._upload(slot, copy_stream)
     t3 = time.perf_counter()
     slot.copied.synchronize()
     t4 = time.perf_counter()
@@ -981,11 +981,12 @@ def stream_layers(stream, scenes):
     out = stream._step(slot.dev, slot)
     torch.cuda.synchronize()
     t6 = time.perf_counter()
-    emitted = list(stream._emit([_Pending(out, dev, 0)], [1.0] * len(scenes)))
+    emitted = list(stream._emit([_Pending(out, dev, 0)], scales))
     t7 = time.perf_counter()
     n = len(emitted)
-    log(f"  layers on one batch of {n}: letterbox {(t1 - t0) * 1e3 / n:.3f} ms/img on one "
-        f"thread, pinned copy {(t3 - t2) * 1e3:.3f} ms + to the card {(t4 - t3) * 1e3:.3f} ms, "
+    log(f"  layers on one batch of {n}: letterbox into the pinned slot "
+        f"{(t1 - t0) * 1e3 / n:.3f} ms/img on one thread, copy enqueued in "
+        f"{(t3 - t2) * 1e3:.3f} ms + to the card {(t4 - t3) * 1e3:.3f} ms, "
         f"step {(t6 - t5) * 1e3:.3f} ms, download + emit {(t7 - t6) * 1e3:.3f} ms a batch")
 
 

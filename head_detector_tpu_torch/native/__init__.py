@@ -180,16 +180,23 @@ def write_objs_native(vertices: np.ndarray, faces_block: bytes, paths: List[str]
         raise OSError(f"failed to write {[paths[i] for i in bad[:5]]}")
 
 
-def letterbox_native(image: np.ndarray, size: int) -> Tuple[np.ndarray, float]:
+def letterbox_native(image: np.ndarray, size: int,
+                     out: Optional[np.ndarray] = None) -> Tuple[np.ndarray, float]:
     """Aspect-preserving bilinear resize of an HWC uint8 image pasted at the
     centre of a 127-filled ``size`` square, and its scale: the layout of
     ``StreamingDetector``'s host letterbox; within 2 counts of cv2's
-    ``INTER_LINEAR`` (fixed-point weights) and equal to it in the padding."""
+    ``INTER_LINEAR`` (fixed-point weights) and equal to it in the padding.
+    ``out`` (a C-contiguous [size, size, 3] uint8 array) takes the square in
+    place of a new one."""
     lib = _require()
     img = np.ascontiguousarray(image, np.uint8)
     if img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"expected HWC uint8 image, got {img.shape}")
-    out = np.empty((size, size, 3), np.uint8)
+    if out is None:
+        out = np.empty((size, size, 3), np.uint8)
+    elif out.shape != (size, size, 3) or out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError(f"expected a contiguous [{size}, {size}, 3] uint8 out, got "
+                         f"{out.shape} {out.dtype}")
     scale = lib.hdt_letterbox(_ptr(img, ctypes.c_uint8), img.shape[0], img.shape[1],
                               _ptr(out, ctypes.c_uint8), size)
     return out, float(scale)

@@ -8,15 +8,24 @@ and pinned ring; the JAX rule picks the replicas (the largest divisor of
 over them, and the results are emitted in input order.  By default there is
 one replica, on ``device``.  Per batch:
 
-1. host: worker threads letterbox each image with cv2 INTER_LINEAR (sized
-   ``int(side * scale + 0.5)``, centred, padded with 127; the native host
-   library's letterbox under ``HDT_LETTERBOX=native`` or without cv2) and a
-   producer thread groups them into batches behind a bounded queue; a short
-   last batch is padded with copies of its last image;
-2. upload: the batch is copied into a pinned host buffer of a ring of
-   ``pipeline_depth + 1`` and from there to the card on a copy stream; the
-   compute stream waits on the copy's event.  The next batch is uploaded
-   before this one's step is enqueued, so the copy overlaps the step;
+1. host: a producer thread takes a free slot set (one pinned slot a
+   replica) of a ring of ``pipeline_depth + 1`` and hands the batch's
+   images to worker threads, which letterbox each straight into its row of
+   the pinned slot with cv2 INTER_LINEAR (sized ``int(side * scale +
+   0.5)``, centred, the border strips padded with 127; the native host
+   library's letterbox under ``HDT_LETTERBOX=native`` or without cv2); a
+   short last batch is padded with copies of its last image's row.  The
+   ring is the backpressure: the workers run at most the ring ahead of the
+   card;
+2. upload: once the rows are written the producer enqueues each slot's copy
+   to its card on a copy stream, after the last step that read the slot's
+   device buffer, and queues the batch; the consumer (the calling thread)
+   steps it at once, its compute stream waiting on the copy's event, and
+   returns the slot set to the ring once the step is enqueued (on the CPU,
+   where the slot is the step's input, once the step has returned).  The
+   producer waits for a slot's last copy before it writes the slot's rows
+   again, so no pinned row is rewritten while a copy may still read it and
+   no device buffer is overwritten before the step that reads it;
 3. step (compute stream): uint8 -> float32 / 255, the deploy forward in
    ``dtype``, fixed-size NMS, then the FLAME towers and the mesh decode (on
    the ``mesh_subset`` vertices, float32 LBS, output in ``verts_dtype``) for
@@ -35,13 +44,16 @@ ahead than the step being enqueued.
 
 Under a profiler session (``profiling.py``) ``run()`` records, on the
 calling thread, the spans ``pipeline.start`` (once a call),
-``pipeline.feed_wait``, ``pipeline.upload``, ``pipeline.step`` and
+``pipeline.feed_wait``, ``pipeline.upload`` (taking a staged batch: its
+counts and the wait on its copy's event), ``pipeline.step`` and
 ``pipeline.emit`` with its child ``pipeline.emit_wait`` (once a batch, keyed
 by the batch's index; none is open across a ``yield``), and counts each
-batch it takes in ``pipeline.letterbox_images`` and the workers' letterbox
-time of its images in ``pipeline.letterbox_ns`` (the workers time every
-image: they run up to a whole input ahead, so a session may hold a batch
-letterboxed before it began).
+batch it takes in ``pipeline.letterbox_images`` and the workers' time of
+its images, the write into the slot included, in ``pipeline.letterbox_ns``.
+The producer counts the slot sets it takes in ``pipeline.ring_fills`` and
+the time it waited for them in ``pipeline.ring_wait_ns``, for the waits
+that began inside the session (one that spans the session's start would
+count the time before it).
 """
 
 from __future__ import annotations
@@ -70,8 +82,32 @@ from head_detector_tpu_torch.flame import FlameModel, fused_project_vertices
 from head_detector_tpu_torch.models import ArchCfg, build_model, get_arch, globalize_flame
 from head_detector_tpu_torch.ops.nms import batched_nms, compact_detections
 from head_detector_tpu_torch.ops.sparse_towers import sparse_flame_rows
-from head_detector_tpu_torch.profiling import count, span
+from head_detector_tpu_torch.profiling import count, recording, span
 from head_detector_tpu_torch.weights import count_leaves, load_variables, state_dict_from_flax
+
+
+def letterbox_into(image: np.ndarray, out: np.ndarray) -> float:
+    """Letterbox an HWC uint8 ``image`` into ``out`` (a [S, S, 3] uint8 row,
+    written in place) and return its scale: cv2 INTER_LINEAR resized to
+    ``int(side * scale + 0.5)``, centred, only the border strips set to 127;
+    the native host library's letterbox under ``HDT_LETTERBOX=native`` or
+    without cv2."""
+    s = out.shape[0]
+    if cv2 is None or os.environ.get("HDT_LETTERBOX") == "native":
+        from head_detector_tpu_torch.native import letterbox_native
+
+        return letterbox_native(image, s, out=out)[1]
+    h, w = image.shape[:2]
+    scale = min(s / h, s / w)
+    nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
+    top, left = (s - nh) // 2, (s - nw) // 2
+    picture = out[top:top + nh, left:left + nw]
+    resized = cv2.resize(image, (nw, nh), dst=picture, interpolation=cv2.INTER_LINEAR)
+    if resized is not picture:  # cv2 made its own array (another dtype or shape)
+        picture[...] = resized
+    out[:top] = out[top + nh:] = 127
+    out[top:top + nh, :left] = out[top:top + nh, left + nw:] = 127
+    return scale
 
 
 class _Slot:
@@ -87,6 +123,7 @@ class _Slot:
         else:
             self.host = self.dev = torch.empty(shape, dtype=torch.uint8)
             self.copied = self.consumed = None
+        self.rows = self.host.numpy()  # the letterbox workers write these in place
 
 
 class _Pending:
@@ -222,34 +259,38 @@ class StreamingDetector:
                     (cres.batch_idx, cres.slot_idx, cres.valid, verts.to(self.verts_dtype)))
 
     def _letterbox_host(self, image: np.ndarray) -> Tuple[np.ndarray, float]:
-        s = self.image_size
-        if cv2 is None or os.environ.get("HDT_LETTERBOX") == "native":
-            from head_detector_tpu_torch.native import letterbox_native
+        out = np.empty((self.image_size, self.image_size, 3), np.uint8)
+        return out, letterbox_into(image, out)
 
-            return letterbox_native(image, s)
-        h, w = image.shape[:2]
-        scale = min(s / h, s / w)
-        nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
-        resized = cv2.resize(image, (nw, nh), interpolation=cv2.INTER_LINEAR)
-        out = np.full((s, s, 3), 127, np.uint8)
-        top, left = (s - nh) // 2, (s - nw) // 2
-        out[top : top + nh, left : left + nw] = resized
-        return out, scale
-
-    def _letterbox_timed(self, image: np.ndarray) -> Tuple[np.ndarray, float, int]:
-        """(canvas, scale, ns the worker spent on it) of ``_letterbox_host``."""
+    @staticmethod
+    def _letterbox_timed(image: np.ndarray, out: np.ndarray) -> Tuple[float, int]:
+        """(scale, ns the worker spent on it) of ``letterbox_into``."""
         t0 = time.perf_counter_ns()
-        canvas, scale = self._letterbox_host(image)
-        return canvas, scale, time.perf_counter_ns() - t0
+        scale = letterbox_into(image, out)
+        return scale, time.perf_counter_ns() - t0
 
-    def _upload(self, slot: _Slot, canvases: List[np.ndarray], copy_stream) -> None:
-        """Fill ``slot`` with its rows of a batch (``canvases``, already
-        padded) and enqueue their copy to the device."""
-        if slot.copied is not None:
-            slot.copied.synchronize()  # the pinned buffer's last copy has left
-        host = slot.host.numpy()
-        for i in range(host.shape[0]):
-            host[i] = canvases[i]
+    def _stage(self, pool: cf.Executor, images: List[np.ndarray], slots: List[_Slot],
+               copy_streams: list) -> Tuple[List[float], int]:
+        """Letterbox a batch's ``images`` on ``pool`` straight into the rows
+        of ``slots`` (one a replica; a short batch padded with copies of its
+        last row) and enqueue each slot's copy to its device: (the images'
+        scales, the workers' ns)."""
+        for slot in slots:
+            if slot.copied is not None:
+                slot.copied.synchronize()  # the pinned rows' last copy has left
+        rows = [row for slot in slots for row in slot.rows]
+        done = [job.result() for job in
+                [pool.submit(self._letterbox_timed, im, row) for im, row in zip(images, rows)]]
+        for row in rows[len(images):]:
+            row[...] = rows[len(images) - 1]
+        for slot, stream in zip(slots, copy_streams):
+            self._upload(slot, stream)
+        return [scale for scale, _ in done], sum(ns for _, ns in done)
+
+    @staticmethod
+    def _upload(slot: _Slot, copy_stream) -> None:
+        """Enqueue the copy of ``slot``'s host rows to its device, after the
+        last step that read the device rows (nothing on the CPU)."""
         if copy_stream is not None:
             with torch.cuda.stream(copy_stream):
                 copy_stream.wait_event(slot.consumed)  # the last step has read it
@@ -259,6 +300,7 @@ class StreamingDetector:
     def run(self, images: Iterable[np.ndarray]) -> Iterator[dict]:
         """Yield one dict per image (see the module docstring)."""
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        free: "queue.Queue[int]" = queue.Queue()  # the ring's free slot sets
         stop = threading.Event()
 
         def put(item) -> bool:
@@ -270,22 +312,30 @@ class StreamingDetector:
                     pass
             return False
 
+        def take() -> Optional[int]:
+            while not stop.is_set():
+                try:
+                    return free.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            return None
+
         def producer():
             pool = cf.ThreadPoolExecutor(self.workers)
             try:
-                batch: List[np.ndarray] = []
-                metas: List[float] = []
-                ns = 0  # the workers' letterbox time of the batch
-                for canvas, scale, took in pool.map(self._letterbox_timed, images):
-                    batch.append(canvas)
-                    metas.append(scale)
-                    ns += took
-                    if len(batch) == self.batch_size:
-                        if not put((batch, metas, ns)):
-                            return
-                        batch, metas, ns = [], [], 0
-                if batch and not put((batch, metas, ns)):
-                    return
+                it = iter(images)
+                while batch := list(itertools.islice(it, self.batch_size)):
+                    timed = recording()  # a wait begun before the session is not counted
+                    t0 = time.perf_counter_ns()
+                    k = take()
+                    if k is None:
+                        return
+                    if timed:
+                        count("pipeline.ring_wait_ns", time.perf_counter_ns() - t0)
+                        count("pipeline.ring_fills")
+                    metas, ns = self._stage(pool, batch, ring[k], copy_streams)
+                    if not put((k, metas, ns)):
+                        return
                 put(None)
             except Exception as exc:  # handed to the consumer, which raises it
                 put(exc)
@@ -293,58 +343,47 @@ class StreamingDetector:
                 pool.shutdown(cancel_futures=True)
 
         with span("pipeline.start"):
-            thread = threading.Thread(target=producer, daemon=True)
-            thread.start()
             shape = (self.rows, self.image_size, self.image_size, 3)
-            rings = [[_Slot(shape, r.device) for _ in range(self.pipeline_depth + 1)]
-                     for r in self.replicas]
+            ring = [[_Slot(shape, r.device) for r in self.replicas]
+                    for _ in range(self.pipeline_depth + 1)]
             copy_streams = [torch.cuda.Stream(r.device) if r.device.type == "cuda" else None
                             for r in self.replicas]
+            for k in range(len(ring)):
+                free.put(k)
+            thread = threading.Thread(target=producer, daemon=True)
+            thread.start()
         pending: "collections.deque[tuple]" = collections.deque()
-        staged = None  # (slots, metas) of batch t - 1 uploaded, steps not yet enqueued
         try:
             for t in itertools.count():
                 with span("pipeline.feed_wait", t):
                     item = q.get()
                 if isinstance(item, Exception):
                     raise item
-                nxt = None
-                if item is not None:
-                    canvases, metas, letterbox_ns = item
-                    count("pipeline.letterbox_images", len(canvases))
-                    count("pipeline.letterbox_ns", letterbox_ns)
-                    padded = [canvases[min(i, len(canvases) - 1)]
-                              for i in range(self.batch_size)]
-                    slots = [ring[t % len(ring)] for ring in rings]
-                    with span("pipeline.upload", t):
-                        for k, (slot, stream) in enumerate(zip(slots, copy_streams)):
-                            self._upload(slot, padded[k * self.rows:(k + 1) * self.rows],
-                                         stream)
-                        # free the batch's canvases inside the span: after a run's
-                        # last batch, its letterbox workers gone, that took 54 ms
-                        # on an H100 host
-                        item = canvases = padded = None
-                    nxt = (slots, metas)
-                if staged is not None:
-                    slots, metas = staged
-                    outs = []
-                    with span("pipeline.step", t - 1):
-                        for rep, slot in zip(self.replicas, slots):
-                            if slot.copied is not None:
-                                torch.cuda.current_stream(rep.device).wait_event(slot.copied)
-                            outs.append(_Pending(self._step(slot.dev, slot, rep), rep.device,
-                                                 t - 1))
-                    pending.append((outs, metas))
-                    if len(pending) >= self.pipeline_depth:
-                        yield from self._emit(*pending.popleft())
-                staged = nxt
-                if staged is None:
+                if item is None:
                     break
+                k, metas, letterbox_ns = item
+                with span("pipeline.upload", t):
+                    count("pipeline.letterbox_images", len(metas))
+                    count("pipeline.letterbox_ns", letterbox_ns)
+                    for rep, slot in zip(self.replicas, ring[k]):
+                        if slot.copied is not None:
+                            torch.cuda.current_stream(rep.device).wait_event(slot.copied)
+                with span("pipeline.step", t):
+                    outs = [_Pending(self._step(slot.dev, slot, rep), rep.device, t)
+                            for rep, slot in zip(self.replicas, ring[k])]
+                free.put(k)  # every step that reads the set is enqueued
+                pending.append((outs, metas))
+                if len(pending) >= self.pipeline_depth:
+                    yield from self._emit(*pending.popleft())
             while pending:
                 yield from self._emit(*pending.popleft())
         finally:
             stop.set()
             thread.join()
+            for slots in ring:  # a copy no step waited for still writes its slot
+                for rep, slot in zip(self.replicas, slots):
+                    if slot.copied is not None:
+                        torch.cuda.current_stream(rep.device).wait_event(slot.copied)
 
     def _emit(self, outs: List[_Pending], metas: List[float]) -> Iterator[dict]:
         """The dicts of a batch, all built before the first is yielded."""

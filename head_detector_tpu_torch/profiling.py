@@ -17,7 +17,8 @@ Counterpart of ``head_detector_tpu/profiling.py``:
   Spans and counts are recorded only while a profiler session is active in
   the process (``torch.autograd.profiler._is_profiler_enabled``, which
   every thread sees); otherwise :func:`span` returns the shared no-op
-  ``NO_SPAN`` and :func:`count` returns at once.  The registry keeps the newest ``MAX_RECORDS`` records
+  ``NO_SPAN`` and :func:`count` returns at once; :func:`recording` says
+  whether one is.  The registry keeps the newest ``MAX_RECORDS`` records
   (the counter ``profiling.dropped_records`` counts the rest) and exact
   per-name totals;
 * :func:`time_fn` runs a callable after a warm-up and returns the ms per call,
@@ -122,6 +123,12 @@ def span(name: str, key: Optional[int] = None):
     if not _autograd_profiler._is_profiler_enabled:
         return NO_SPAN
     return _Span(name, key)
+
+
+def recording() -> bool:
+    """Whether a profiler session is active, so that spans and counts are
+    recorded (for a count whose measure begins before the call)."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def count(name: str, n: float = 1) -> None:
