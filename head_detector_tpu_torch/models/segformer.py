@@ -18,6 +18,13 @@ takes its statistics in float32 as ``E[x^2] - E[x]^2`` clipped at 0
 (epsilon 1e-6) and rounds to the dtype at the end; the GELU is the tanh
 approximation; attention is two explicit matmuls in the dtype around a
 float32 softmax, as the JAX einsums are.
+
+Under a profiler session (``profiling.py``) each block's attention records
+the span ``mit.attention`` and adds the query-key pairs it scores, ``b *
+heads * n * m`` with ``m`` the tokens after the spatial reduction, to the
+counter ``mit.attention_pairs``; each block's Mix-FFN records ``mit.ffn``.
+Both spans hold the forward's enqueue on the host and close before the
+block's residual add.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch.nn import functional as F
 from head_detector_tpu_torch.models.blocks import BlockCfg, Conv2d
 from head_detector_tpu_torch.models.heads import YoloHeadsNDFLHeads
 from head_detector_tpu_torch.models.presets import YOLO_HEADS_L, ArchCfg
+from head_detector_tpu_torch.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +118,9 @@ class EfficientSelfAttention(nn.Module):
         self.heads = heads
         self.head_dim = dim // heads
         self.sr_ratio = sr_ratio
-        # sqrt(head_dim) rounded in the compute dtype, as the JAX package takes it
-        self.scale = float(torch.tensor(float(self.head_dim), dtype=dtype).sqrt())
+        # sqrt(head_dim) rounded in the compute dtype, as the JAX package takes
+        # it; on the CPU, so that the model also builds on the meta device
+        self.scale = float(torch.tensor(float(self.head_dim), dtype=dtype, device="cpu").sqrt())
         self.q = Linear(dim, dim)
         if sr_ratio > 1:
             self.sr = Conv2d(dim, dim, sr_ratio, sr_ratio, bias=True)
@@ -121,18 +130,20 @@ class EfficientSelfAttention(nn.Module):
         self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        b, n, c = x.shape
-        q = self.q(x).reshape(b, n, self.heads, self.head_dim).transpose(1, 2)
-        kv = x
-        if self.sr_ratio > 1:
-            kv = self.sr_norm(_tokens(self.sr(_image(x, h, w))))
-        m = kv.shape[1]
-        k = self.k(kv).reshape(b, m, self.heads, self.head_dim).permute(0, 2, 3, 1)
-        v = self.v(kv).reshape(b, m, self.heads, self.head_dim).transpose(1, 2)
-        attn = torch.matmul(q, k) / self.scale  # [B, heads, N, M]
-        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, c)
-        return self.proj(out)
+        with span("mit.attention"):
+            b, n, c = x.shape
+            q = self.q(x).reshape(b, n, self.heads, self.head_dim).transpose(1, 2)
+            kv = x
+            if self.sr_ratio > 1:
+                kv = self.sr_norm(_tokens(self.sr(_image(x, h, w))))
+            m = kv.shape[1]
+            count("mit.attention_pairs", b * self.heads * n * m)
+            k = self.k(kv).reshape(b, m, self.heads, self.head_dim).permute(0, 2, 3, 1)
+            v = self.v(kv).reshape(b, m, self.heads, self.head_dim).transpose(1, 2)
+            attn = torch.matmul(q, k) / self.scale  # [B, heads, N, M]
+            attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+            out = torch.matmul(attn, v).transpose(1, 2).reshape(b, n, c)
+            return self.proj(out)
 
 
 class MixFFN(nn.Module):
@@ -146,8 +157,9 @@ class MixFFN(nn.Module):
         self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        y = self.dwconv(_image(self.fc1(x), h, w))
-        return self.fc2(_tokens(F.gelu(y, approximate="tanh")))
+        with span("mit.ffn"):
+            y = self.dwconv(_image(self.fc1(x), h, w))
+            return self.fc2(_tokens(F.gelu(y, approximate="tanh")))
 
 
 class MiTBlock(nn.Module):

@@ -21,6 +21,14 @@ Counterpart of ``head_detector_tpu/profiling.py``:
   whether one is.  The registry keeps the newest ``MAX_RECORDS`` records
   (the counter ``profiling.dropped_records`` counts the rest) and exact
   per-name totals;
+* the spans and counters the port records, each set documented in its
+  module: ``pipeline.*`` (``pipeline.py``), ``detector.*``
+  (``detector.py``), ``pncc.render`` (``detection_result.py``), the counters
+  ``nms.calls`` and ``nms.sweeps`` (``ops/nms.py``), ``trainer.*``
+  (``train/trainer.py``), and ``mit.attention`` and ``mit.ffn`` around each
+  MiT block's attention and Mix-FFN forward, with the counter
+  ``mit.attention_pairs`` of the query-key pairs scored
+  (``models/segformer.py``);
 * :func:`time_fn` runs a callable after a warm-up and returns the ms per call,
   synchronising the device around the timed calls;
 * :func:`analytic_flops` counts the FLOPs of one call as the JAX package
